@@ -1,0 +1,183 @@
+"""ISTEncoder: heterogeneous GATv2 stack embedding transcripts and cells
+into a shared metric space (deterministic forward).
+
+Architecture of the reference's ``ISTEncoder`` and of
+``segger_tpu/models/encoder.py``:
+
+  - gene embedding for tx, ``Dense`` for bd, each to ``in_channels``
+  - concat of the 2D sinusoidal positional embedding, then exact GELU
+  - (2 + n_mid_layers) hetero GATv2 layers, GELU after each
+  - per-type ``Dense`` to ``out_channels``, then L2 normalization
+
+Each hetero layer runs a GATv2 conv over tx->tx neighbor edges and one
+over the tx->bd supervision ('belongs') edges, the reference's quirk; its
+bd->tx conv never receives edges and is not built here.
+
+Submodule and parameter names follow the flax parameter tree, so
+``models/convert.py`` maps one onto the other by name.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from ..data.graph import TileGraph
+from ..ops.embed import embed_lookup
+from .gatv2 import GATv2Conv, Segment
+from .positional import Positional2dEmbedder, dense
+
+
+def safe_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """L2 normalize with ``F.normalize`` semantics (zero rows stay
+    zero), as the JAX package computes it."""
+    sq = (x * x).sum(dim=-1, keepdim=True)
+    norm = torch.sqrt(sq.clamp(min=eps * eps))
+    return torch.where(sq > eps * eps, x / norm, 0.0)
+
+
+def lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's default kernel init: truncated normal (+-2 std), variance
+    1/fan_in, on an (out, in) torch weight."""
+    std = (1.0 / t.shape[1]) ** 0.5 / 0.87962566103423978
+    with torch.no_grad():
+        t.normal_(generator=generator)
+        while True:
+            bad = t.abs() > 2.0
+            if not bad.any():
+                break
+            t[bad] = torch.randn(int(bad.sum()), generator=generator)
+        t.mul_(std)
+
+
+class DenseGradEmbed(nn.Module):
+    """Embedding table with the flax layout (a single 'embedding')."""
+
+    def __init__(self, num_embeddings: int, features: int):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.empty(num_embeddings, features))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return embed_lookup(self.embedding, ids)
+
+
+class HeteroGATLayer(nn.Module):
+    """One SkipGAT-equivalent layer: tx->tx and tx->bd GATv2, per
+    destination type."""
+
+    def __init__(self, in_channels: int, out_channels: int, heads: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.tt = GATv2Conv(in_channels, out_channels, heads, dtype=dtype)
+        self.tb = GATv2Conv(in_channels, out_channels, heads, dtype=dtype)
+
+    def forward(self, x_tx, x_bd, tt_segments: List[Segment],
+                tb_segments: List[Segment]):
+        return (self.tt(x_tx, x_tx, tt_segments),
+                self.tb(x_tx, x_bd, tb_segments))
+
+
+def tt_segments(tile: TileGraph) -> List[Segment]:
+    """The tt edge stage's launches over a degree-bucketed tile: the
+    extra-low and low segments at their narrow widths, then the
+    full-width tail.  As in the JAX package the split is taken only when
+    the tile carries the per-segment transpose tables; otherwise the
+    whole table is one segment."""
+    idx, mask = tile.tt.idx, tile.tt.mask
+    n = idx.shape[0]
+    if not (tile.tt_n_lo > 0 and tile.tt_lo_t is not None
+            and tile.tt_hi_t is not None):
+        return [(0, n, idx, mask)]
+    if tile.tt_n_xlo > 0 and tile.tt_xlo_t is not None:
+        bounds = [(0, tile.tt_n_xlo, tile.tt_k_xlo),
+                  (tile.tt_n_xlo, tile.tt_n_lo, tile.tt_k_lo)]
+    else:
+        bounds = [(0, tile.tt_n_lo, tile.tt_k_lo)]
+    bounds.append((tile.tt_n_lo, n, idx.shape[1]))
+    return [(a, b, idx[a:b, :k].contiguous(), mask[a:b, :k].contiguous())
+            for a, b, k in bounds]
+
+
+class ISTEncoder(nn.Module):
+    def __init__(
+        self,
+        n_genes: int,
+        n_bd_features: int,
+        in_channels: int = 16,
+        hidden_channels: int = 32,
+        out_channels: int = 32,
+        n_mid_layers: int = 3,
+        n_heads: int = 3,
+        normalize_embeddings: bool = True,
+        use_positional_embeddings: bool = True,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        """``dtype``: compute dtype of the GATv2 layers (e.g.
+        ``torch.bfloat16``); parameters stay float32."""
+        super().__init__()
+        self.normalize_embeddings = normalize_embeddings
+        self.gene_embedding = DenseGradEmbed(n_genes, in_channels)
+        self.bd_linear = nn.Linear(n_bd_features, in_channels)
+        width = in_channels
+        self.pos_emb = None
+        if use_positional_embeddings:
+            self.pos_emb = Positional2dEmbedder(in_channels)
+            width += 2 * (in_channels // 2)
+        widths = [hidden_channels] * (1 + n_mid_layers) + [out_channels]
+        for i, w in enumerate(widths):
+            self.add_module(
+                f"conv_{i}", HeteroGATLayer(width, w, n_heads, dtype)
+            )
+            width = n_heads * w
+        self.n_layers = len(widths)
+        self.lin_last_tx = nn.Linear(width, out_channels)
+        self.lin_last_bd = nn.Linear(width, out_channels)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The JAX package's initializers, drawn from ``generator``."""
+        with torch.no_grad():
+            self.gene_embedding.embedding.normal_(generator=generator)
+        dense_layers = [self.bd_linear, self.lin_last_tx, self.lin_last_bd]
+        if self.pos_emb is not None:
+            dense_layers += [self.pos_emb.Dense_0, self.pos_emb.Dense_1]
+        for lin in dense_layers:
+            lecun_normal_(lin.weight, generator)
+            nn.init.zeros_(lin.bias)
+        for i in range(self.n_layers):
+            layer = getattr(self, f"conv_{i}")
+            layer.tt.reset_parameters(generator)
+            layer.tb.reset_parameters(generator)
+        # the reference's final projection is a torch Linear, whose bias
+        # init keeps isolated nodes off the exact-zero embedding
+        for lin in (self.lin_last_tx, self.lin_last_bd):
+            bound = 1.0 / lin.in_features ** 0.5
+            with torch.no_grad():
+                lin.bias.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, tile: TileGraph) -> Dict[str, torch.Tensor]:
+        """Embeddings of one tile (tensors on the model's device, no
+        batch axis): ``{"tx": (Ntx, out), "bd": (Nbd, out)}``."""
+        x_tx = self.gene_embedding(tile.tx_gene)
+        x_bd = dense(self.bd_linear, tile.bd_x)
+        if self.pos_emb is not None:
+            x_tx = torch.cat(
+                [x_tx, self.pos_emb(tile.tx_pos, tile.tx_valid)], dim=-1)
+            x_bd = torch.cat(
+                [x_bd, self.pos_emb(tile.bd_pos, tile.bd_valid)], dim=-1)
+        # exact (erf) GELU, the reference's
+        x_tx, x_bd = F.gelu(x_tx), F.gelu(x_bd)
+
+        tt_segs = tt_segments(tile)
+        tb_segs = [(0, tile.tb.idx.shape[0], tile.tb.idx, tile.tb.mask)]
+        for i in range(self.n_layers):
+            x_tx, x_bd = getattr(self, f"conv_{i}")(
+                x_tx, x_bd, tt_segs, tb_segs)
+            x_tx, x_bd = F.gelu(x_tx), F.gelu(x_bd)
+
+        x_tx = dense(self.lin_last_tx, x_tx)
+        x_bd = dense(self.lin_last_bd, x_bd)
+        if self.normalize_embeddings:
+            x_tx, x_bd = safe_normalize(x_tx), safe_normalize(x_bd)
+        return {"tx": x_tx, "bd": x_bd}

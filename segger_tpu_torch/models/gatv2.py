@@ -1,0 +1,80 @@
+"""GATv2 convolution over padded-CSR adjacency (deterministic forward).
+
+Math of PyG's ``GATv2Conv`` with ``share_weights=False``,
+``concat=True``, ``negative_slope=0.2``:
+
+    x_l = W_l x_src + b_l                        (per source node)
+    x_r = W_r x_dst + b_r                        (per destination node)
+    e_ij = a_h . leaky_relu(x_l[j] + x_r[i])     (per edge, per head h)
+    alpha = softmax_j(e_ij)                      (over i's in-edges)
+    out_i = concat_h( sum_j alpha_ij x_l[j,h] ) + bias
+
+The projections are ``F.linear``; the edge stage is the CUDA kernel of
+``ops/postgather.py`` (its plain version on the CPU), launched once per
+degree-bucket segment of the destination rows.  Destinations with no
+in-edge output ``bias`` only.
+
+Types follow ``flax.linen.Dense(dtype=...)``: with a compute dtype, the
+projections and ``att`` run in it, and adding the float32 ``bias``
+promotes each conv's output to float32.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ..ops.postgather import edge_stage_fwd
+from .positional import dense
+
+# one launch of the edge stage: destination rows [start, stop) and their
+# contiguous (stop - start, K) idx / mask tables
+Segment = Tuple[int, int, torch.Tensor, torch.Tensor]
+
+
+def glorot_uniform_(t: torch.Tensor, fan_in: int, fan_out: int,
+                    generator: torch.Generator) -> None:
+    limit = (6.0 / (fan_in + fan_out)) ** 0.5
+    with torch.no_grad():
+        t.uniform_(-limit, limit, generator=generator)
+
+
+class GATv2Conv(nn.Module):
+    """Single-edge-type GATv2 attention convolution (bipartite-capable)."""
+
+    def __init__(self, in_channels: int, out_channels: int, heads: int = 1,
+                 negative_slope: float = 0.2,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        hc = heads * out_channels
+        self.heads, self.out_channels = heads, out_channels
+        self.negative_slope = negative_slope
+        self.dtype = dtype
+        self.lin_l = nn.Linear(in_channels, hc)
+        self.lin_r = nn.Linear(in_channels, hc)
+        self.att = nn.Parameter(torch.empty(1, heads, out_channels))
+        self.bias = nn.Parameter(torch.empty(hc))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """flax init: glorot-uniform kernels and ``att``, zero biases."""
+        for lin in (self.lin_l, self.lin_r):
+            glorot_uniform_(lin.weight, lin.in_features, lin.out_features,
+                            generator)
+            nn.init.zeros_(lin.bias)
+        glorot_uniform_(self.att, self.heads, self.out_channels, generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x_src: torch.Tensor, x_dst: torch.Tensor,
+                segments: Sequence[Segment]) -> torch.Tensor:
+        """``segments`` cover the destination rows in order (one segment
+        for an unbucketed table)."""
+        xl = dense(self.lin_l, x_src, self.dtype)
+        xr = dense(self.lin_r, x_dst, self.dtype)
+        att = self.att[0].to(xl.dtype)
+        outs = [
+            edge_stage_fwd(xl, xr[a:b], att, idx, mask, self.heads,
+                           self.negative_slope)[0]
+            for a, b, idx, mask in segments
+        ]
+        return torch.cat(outs, dim=0) + self.bias
