@@ -2,23 +2,34 @@
 """Smoke run of the PyTorch/CUDA port (``segger_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py            # the check, on one CUDA device
-    python3 chip_smoke.py --profile  # also a torch.profiler breakdown of
-                                     # one predict pass, by kernel, into
-                                     # chiprun_out/predict_profile.txt
+    python3 chip_smoke.py --profile  # also torch.profiler breakdowns of
+                                     # one predict pass and one training
+                                     # step, by kernel, into
+                                     # chiprun_out/{predict,train}_profile.txt
 
 Phases (any failure exits non-zero; nothing is caught):
 
-1. build every CUDA kernel of the predict path from ``segger_tpu_torch/
-   csrc`` (one nvcc per source, started together) and print the build
-   time and each kernel's registers and spills;
-2. hold each kernel against its plain PyTorch version on the card at the
-   predict path's shapes, and time both (CUDA events), beside the least
-   time the card could take for the same work;
+1. build every CUDA kernel of the predict and training paths from
+   ``segger_tpu_torch/csrc`` (one nvcc per source, started together) and
+   print the build time and each kernel's registers and spills;
+2. hold each kernel against its plain PyTorch version on the card, at
+   N = 50,000 rows and on the main paths' own tile tables, and time both
+   (CUDA events), beside the least time the card could take for the same
+   work: K1 (edge-stage forward), K2 (its hashed-dropout mode), K3 (the
+   edge-stage backward, no-dropout and hashed-dropout modes, run twice
+   to show it repeats bit for bit), K4 (the keep-tensor mode of both) and
+   K5 (candidate scoring);
 3. drive ``SeggerTrainer.predict`` at the full ``TrainConfig()`` width
    (bf16, 4 GATv2 layers, 64 x 2 heads) over a synthetic slide of 200k
    transcripts and 10k cells with random weights from a seed, counting
    kernel launches, and run the same predict on the CPU (plain versions,
-   same weights) to compare assignments.
+   same weights) to compare assignments;
+4. drive ``SeggerTrainer.fit`` for 2 epochs at ``TrainConfig()`` on the
+   same slide's margin tiles, counting launches, with per-epoch losses,
+   step wall times and peak memory; then the edge-stage op in keep mode
+   (K4's own path) forward and backward on a training tile;
+5. run the first 4 training steps again on the CPU (same init, same
+   generators, plain versions) and compare the per-step losses.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel JSON record, and the line before that the card's
@@ -40,6 +51,11 @@ HBM_BYTES_PER_S = 3.35e12         # H100 SXM, device memory
 F32_OPS_PER_S = 67e12             # H100 SXM, float32 outside tensor cores
 MIN_AGREEMENT = 0.99              # GPU vs CPU identical cell_encoding
 SIM_ATOL = 2e-2                   # GPU vs CPU similarity
+DROPOUT = 0.2                     # the encoder's attention dropout
+TRAIN_EPOCHS = 2
+CPU_STEPS = 4                     # training steps repeated on the CPU
+FIRST_STEP_RTOL = 1e-2            # GPU vs CPU loss of the first step
+MEAN_STEP_RTOL = 2e-2             # GPU vs CPU mean loss of the CPU steps
 ROOT = Path(__file__).resolve().parent
 
 
@@ -132,27 +148,64 @@ def random_table(n, k, n_src, rng, empty_frac=0.02):
             torch.from_numpy(mask).cuda())
 
 
-def check_edge_stage(idx, mask, n_src, dtype, rng, heads=2, hc=128):
-    """The edge-stage kernel against its plain version on one (idx,
-    mask) table, with random features; times both."""
+def _dropout_args(mode, rng, n, k, heads, dtype):
+    """The edge stage's dropout keywords for ``mode``: hashed from two
+    seed words at the training rate, or an (n, k, heads) keep tensor."""
+    import torch
+
+    if mode == "prng":
+        w = rng.integers(0, 2**32, 2)
+        return {"seed": (int(w[0]), int(w[1])), "rate": DROPOUT}
+    if mode == "keep":
+        gen = torch.Generator(device="cuda").manual_seed(
+            int(rng.integers(1e9)))
+        keep = (torch.rand(n, k, heads, generator=gen, device="cuda")
+                >= DROPOUT) / (1 - DROPOUT)
+        return {"keep": keep.to(dtype)}
+    return {}
+
+
+def _features(idx, n_src, dtype, rng, heads, hc):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1e9)))
+    n = idx.shape[0]
+    xl = torch.randn(n_src, hc, generator=gen, device="cuda").to(dtype)
+    xr = torch.randn(n, hc, generator=gen, device="cuda").to(dtype)
+    att = torch.randn(heads, hc // heads, generator=gen,
+                      device="cuda").to(dtype)
+    go = torch.randn(n, hc, generator=gen, device="cuda").to(dtype)
+    return xl, xr, att, go
+
+
+def _row_bytes(idx, mask, hc, size):
+    """Bytes of the source rows that the valid slots reference (each
+    once) and of the idx/mask tables."""
+    n_src_rows = int(idx[mask].unique().numel())
+    return n_src_rows * hc * size + idx.numel() * 5
+
+
+def check_edge_stage(idx, mask, n_src, dtype, rng, heads=2, hc=128,
+                     mode="nokeep"):
+    """The edge-stage forward kernel against its plain version on one
+    (idx, mask) table, with random features, in one dropout mode; times
+    both."""
     import torch
 
     from segger_tpu_torch.ops.postgather import (
         edge_stage_fwd, edge_stage_fwd_reference,
     )
 
-    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1e9)))
     n, k = idx.shape
-    xl = torch.randn(n_src, hc, generator=gen, device="cuda").to(dtype)
-    xr = torch.randn(n, hc, generator=gen, device="cuda").to(dtype)
-    att = torch.randn(heads, hc // heads, generator=gen,
-                      device="cuda").to(dtype)
+    xl, xr, att, _ = _features(idx, n_src, dtype, rng, heads, hc)
+    kw = _dropout_args(mode, rng, n, k, heads, dtype)
     args = (xl, xr, att, idx, mask, heads)
-    out, alpha = edge_stage_fwd(*args)
-    ref_out, ref_alpha = edge_stage_fwd_reference(*args)
+    out, alpha = edge_stage_fwd(*args, **kw)
+    ref_out, ref_alpha = edge_stage_fwd_reference(*args, **kw)
     torch.cuda.synchronize()
     if not (torch.isfinite(out.float()).all() and torch.isfinite(alpha).all()):
-        raise AssertionError(f"edge_stage_fwd K={k} {dtype}: non-finite")
+        raise AssertionError(f"edge_stage_fwd {mode} K={k} {dtype}: "
+                             "non-finite")
     err_out = (out.float() - ref_out.float()).abs()
     err_alpha = (alpha - ref_alpha).abs().max().item()
     # f32: one arithmetic, other summation order.  bf16: the f32 sums
@@ -164,28 +217,108 @@ def check_edge_stage(idx, mask, n_src, dtype, rng, heads=2, hc=128):
     ok_out = (err_out <= atol + rtol * ref_out.float().abs()).all().item()
     if not ok_out or err_alpha > 1e-5:
         raise AssertionError(
-            f"edge_stage_fwd K={k} {dtype}: out err {err_out.max().item()}"
-            f" alpha err {err_alpha}")
+            f"edge_stage_fwd {mode} K={k} {dtype}: out err "
+            f"{err_out.max().item()} alpha err {err_alpha}")
     empty = ~mask.any(1)
     if not ((out[empty] == 0).all() and (alpha[empty] == 0).all()):
         raise AssertionError("edge_stage_fwd: empty rows not zero")
-    launches = edge_stage_fwd.launches
-    ms = cuda_ms(lambda: edge_stage_fwd(*args), 50)
-    plain_ms = cuda_ms(lambda: edge_stage_fwd_reference(*args), 5)
+    launches = dict(edge_stage_fwd.launches)
+    ms = cuda_ms(lambda: edge_stage_fwd(*args, **kw), 50)
+    plain_ms = cuda_ms(lambda: edge_stage_fwd_reference(*args, **kw), 5)
     edge_stage_fwd.launches = launches     # the checks do not count
     size = xl.element_size()
     n_valid = int(mask.sum())
-    n_src_rows = int(idx[mask].unique().numel())
-    n_bytes = ((n_src_rows + 2 * n) * hc * size + hc * size
-               + idx.numel() * 5 + alpha.numel() * 4)
+    n_bytes = (_row_bytes(idx, mask, hc, size) + 2 * n * hc * size
+               + hc * size + alpha.numel() * 4)
+    if mode == "keep":
+        n_bytes += kw["keep"].numel() * size
     n_ops = n_valid * hc * 8      # add, leaky, logit fma, weighted sum
     b_ms, b_by = bound_ms(n_bytes, n_ops)
-    return {"n": n, "k": k, "dtype": str(dtype).split(".")[-1],
+    return {"mode": mode, "n": n, "k": k,
+            "dtype": str(dtype).split(".")[-1],
             "max_abs_err": max(err_out.max().item(), err_alpha),
             "tol": f"out atol {atol} rtol {rtol}, alpha atol 1e-5",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "bytes": n_bytes, "valid_slots": n_valid,
             "empty_rows": int(empty.sum())}
+
+
+def check_edge_stage_bwd(idx, mask, n_src, dtype, rng, heads=2, hc=128,
+                         mode="nokeep"):
+    """The edge-stage backward kernel against its plain version on one
+    table, from the forward's alpha and a random output gradient, in one
+    dropout mode; runs it twice to show the outputs repeat bit for bit,
+    and times both versions."""
+    import torch
+
+    from segger_tpu_torch.ops.postgather import (
+        edge_stage_bwd, edge_stage_bwd_reference, edge_stage_fwd,
+    )
+
+    n, k = idx.shape
+    xl, xr, att, go = _features(idx, n_src, dtype, rng, heads, hc)
+    kw = _dropout_args(mode, rng, n, k, heads, dtype)
+    launches_f = dict(edge_stage_fwd.launches)
+    _, alpha = edge_stage_fwd(xl, xr, att, idx, mask, heads, **kw)
+    edge_stage_fwd.launches = launches_f
+    args = (xl, xr, att, idx, mask, alpha, go, heads)
+    got = edge_stage_bwd(*args, **kw)
+    again = edge_stage_bwd(*args, **kw)
+    want = edge_stage_bwd_reference(*args, **kw)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        atol, rtol, datt_tol = 1e-5, 1e-5, 1e-5
+    else:
+        atol, rtol, datt_tol = 2e-2, 2e-2, 1e-2
+    errs = {}
+    for name, a, b in (("dg", got[0], want[0]), ("dkeep", got[3], want[3])):
+        if a is None:
+            continue
+        if not torch.isfinite(a.float()).all():
+            raise AssertionError(f"edge_stage_bwd {mode}: {name} non-finite")
+        err = (a.float() - b.float()).abs()
+        if not (err <= atol + rtol * b.float().abs()).all().item():
+            raise AssertionError(f"edge_stage_bwd {mode} K={k} {dtype}: "
+                                 f"{name} err {err.max().item()}")
+        errs[name] = err.max().item()
+    # dxr sums the K slots of a row, datt every slot of every row, in
+    # another order than the plain version: each against its own scale
+    for name, a, b in (("dxr", got[1], want[1]), ("datt", got[2], want[2])):
+        scale = b.float().abs().max().item() + 1e-9
+        errs[name] = (a.float() - b.float()).abs().max().item()
+        if not torch.isfinite(a.float()).all() \
+                or errs[name] / scale > datt_tol:
+            raise AssertionError(f"edge_stage_bwd {mode} K={k} {dtype}: "
+                                 f"{name} err {errs[name]} of {scale}")
+    if not ((got[0][~mask] == 0).all() and (got[1][~mask.any(1)] == 0).all()):
+        raise AssertionError("edge_stage_bwd: masked slots not zero")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)
+               if a is not None):
+        raise AssertionError("edge_stage_bwd: two runs differ")
+    launches = dict(edge_stage_bwd.launches)
+    ms = cuda_ms(lambda: edge_stage_bwd(*args, **kw), 20)
+    plain_ms = cuda_ms(lambda: edge_stage_bwd_reference(*args, **kw), 3)
+    edge_stage_bwd.launches = launches
+    size = xl.element_size()
+    n_valid = int(mask.sum())
+    n_blocks = min(-(-n // 8), 1024)
+    # reads: the referenced source rows, xr, G, alpha, idx/mask; writes:
+    # dg, dxr and the datt partials (keep mode: keep in, dkeep out)
+    n_bytes = (_row_bytes(idx, mask, hc, size) + 2 * n * hc * size
+               + alpha.numel() * 4 + n * k * hc * size + n * hc * size
+               + n_blocks * hc * 4)
+    if mode == "keep":
+        n_bytes += 2 * kw["keep"].numel() * size
+    n_ops = n_valid * hc * 14     # t, dA, p, s, datt, dp, dxr, dg
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    return {"mode": mode, "n": n, "k": k,
+            "dtype": str(dtype).split(".")[-1],
+            "max_abs_err": max(errs.values()), "errs": errs,
+            "tol": f"dg/dkeep atol {atol} rtol {rtol}, dxr and datt "
+                   f"{datt_tol} of their max; two runs bit-equal",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "bytes": n_bytes, "valid_slots": n_valid,
+            "empty_rows": int((~mask.any(1)).sum())}
 
 
 def check_score(idx, mask, n_bd, rng, f=64, dtype=None):
@@ -285,6 +418,91 @@ def profile_predict(trainer, specs, plans, path: Path):
     print(f"profile table in {path}")
 
 
+def profile_train_step(trainer, plan, path: Path):
+    """One training step under torch.profiler: device time by kernel and
+    the device's busy share of the step's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _, gen = trainer.epoch_streams(0)
+    weights = trainer.weights(0, TRAIN_EPOCHS)
+    batch = trainer._build_batch(plan, cache=False)
+    trainer.train_step(batch.to("cuda"), gen, weights)       # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(batch.to("cuda"), gen, weights)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation) / 1e3
+    table = events.table(sort_by="self_device_time_total", row_limit=30)
+    line = (f"train profile: one step (H2D copy included) wall "
+            f"{wall * 1e3:.3f} ms, device busy {busy_ms:.3f} ms, idle "
+            f"share {1 - busy_ms / 1e3 / wall:.4f}")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(f"{line}\n{table}\n")
+    print(line)
+    print(f"profile table in {path}")
+
+
+def reset_counts():
+    from segger_tpu_torch.ops.postgather import (
+        MODES, edge_stage_bwd, edge_stage_fwd,
+    )
+    from segger_tpu_torch.ops.score import score_max
+
+    edge_stage_fwd.launches = dict.fromkeys(MODES, 0)
+    edge_stage_bwd.launches = dict.fromkeys(MODES, 0)
+    score_max.launches = 0
+
+
+def read_counts() -> dict:
+    from segger_tpu_torch.ops.postgather import edge_stage_bwd, edge_stage_fwd
+    from segger_tpu_torch.ops.score import score_max
+
+    return {"fwd": dict(edge_stage_fwd.launches),
+            "bwd": dict(edge_stage_bwd.launches),
+            "score": score_max.launches}
+
+
+def drive_keep_op(tile, heads, hc, dtype, rng):
+    """K4's own path: the differentiable edge-stage op in keep mode,
+    forward and backward, on each launch of one layer of a training
+    tile (its tt segments with their transpose tables, and tb)."""
+    import torch
+
+    from segger_tpu_torch.models.encoder import tt_segments
+    from segger_tpu_torch.ops.postgather import gatv2_edge_stage
+
+    segs = [(a, b, i, m, t) for a, b, i, m, t in tt_segments(tile)]
+    segs.append((0, tile.n_bd, tile.tb.idx, tile.tb.mask, tile.tb_t))
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1e9)))
+    for si, (a, b, idx, mask, csr_t) in enumerate(segs):
+        n_dst = tile.n_bd if si == len(segs) - 1 else tile.n_tx
+        xl = torch.randn(tile.n_tx, hc, generator=gen, device="cuda").to(
+            dtype).requires_grad_()
+        xr = torch.randn(n_dst, hc, generator=gen, device="cuda").to(
+            dtype).requires_grad_()
+        att = torch.randn(heads, hc // heads, generator=gen,
+                          device="cuda").to(dtype).requires_grad_()
+        n, k = idx.shape
+        keep = ((torch.rand(n, k, heads, generator=gen, device="cuda")
+                 >= DROPOUT) / (1 - DROPOUT)).to(dtype).requires_grad_()
+        out = gatv2_edge_stage(xl, xr[a:b], att, idx, mask, heads,
+                               csr_t=csr_t, keep=keep)
+        out.float().square().sum().backward()
+        for t in (xl, xr, att, keep):
+            if not torch.isfinite(t.grad.float()).all():
+                raise AssertionError("keep-mode op: non-finite gradient")
+    torch.cuda.synchronize()
+    return len(segs)
+
+
 def main(argv) -> int:
     import torch
 
@@ -295,12 +513,10 @@ def main(argv) -> int:
     import numpy as np
 
     from segger_tpu_torch.data.partition import (
-        build_tiling, make_predict_tiles,
+        build_tiling, make_fit_tiles, make_predict_tiles,
     )
     from segger_tpu_torch.models.encoder import tt_segments
     from segger_tpu_torch.ops import _build
-    from segger_tpu_torch.ops.postgather import edge_stage_fwd
-    from segger_tpu_torch.ops.score import score_max
     from segger_tpu_torch.train.trainer import SeggerTrainer, TrainConfig
 
     card = gpu_line()
@@ -322,66 +538,108 @@ def main(argv) -> int:
     graph = synthetic_slide()
     tree = build_tiling(graph, nodes_per_tile=50_000)
     specs = make_predict_tiles(graph, tree, margin=20.0)
+    fit_specs = make_fit_tiles(graph, tree, margin=20.0)
     cfg = TrainConfig()
     trainer = SeggerTrainer(graph, cfg)
     plans = trainer._batch_plans(specs, use_xlo=True)
     bucket = plans[0][1]
+    train_tiles, val_tiles = trainer.split_tiles(fit_specs)
+    fit_plans = trainer._batch_plans(
+        train_tiles, shuffle=True, rng=trainer.epoch_streams(0)[0])
+    val_plans = trainer._batch_plans(val_tiles)
+    fit_bucket = fit_plans[0][1]
     print(f"slide: {graph.n_tx} tx, {graph.n_bd} cells, {len(specs)} "
-          f"tiles, {len(plans)} batches, bucket {bucket}, host "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"predict tiles, {len(plans)} batches, bucket {bucket}; "
+          f"{len(fit_specs)} fit tiles ({len(train_tiles)} train, "
+          f"{len(val_tiles)} val), {len(fit_plans)} train and "
+          f"{len(val_plans)} val batches per epoch, bucket {fit_bucket}; "
+          f"host {time.perf_counter() - t0:.1f} s")
     if not (bucket.n_xlo and bucket.n_lo):
         raise AssertionError("predict bucket lost its degree segments")
+    if not fit_bucket.n_lo or fit_bucket.n_xlo:
+        raise AssertionError("fit bucket is not the lo + hi split")
 
     # -- phase 2: kernels against their plain versions.  (a) N = 50,000
-    # rows at the real tile's widths, bf16 and f32, random tables
+    # rows at the real tiles' widths, random tables
     rng = np.random.default_rng(SEED)
     heads, hc = cfg.n_heads, cfg.n_heads * cfg.hidden_channels
+    bf16, f32 = torch.bfloat16, torch.float32
     checks = []
     for k in sorted({bucket.k_xlo, bucket.k_lo, bucket.k_tt, bucket.k_tb}):
         idx, mask = random_table(N_BENCH, k, N_BENCH, rng)
-        for dt in (torch.bfloat16, torch.float32):
-            checks.append(("edge_stage_fwd", "N=50000", check_edge_stage(
+        for dt in (bf16, f32):
+            checks.append(("K1", "N=50000", check_edge_stage(
                 idx, mask, N_BENCH, dt, rng, heads, hc)))
+    for k in sorted({fit_bucket.k_lo, fit_bucket.k_tt, fit_bucket.k_tb}):
+        idx, mask = random_table(N_BENCH, k, N_BENCH, rng)
+        dts = (bf16, f32) if k == fit_bucket.k_tt else (bf16,)
+        for dt in dts:
+            checks.append(("K2", "N=50000", check_edge_stage(
+                idx, mask, N_BENCH, dt, rng, heads, hc, "prng")))
+            for mode in ("prng", "nokeep"):
+                checks.append(("K3", "N=50000", check_edge_stage_bwd(
+                    idx, mask, N_BENCH, dt, rng, heads, hc, mode)))
+        if k == fit_bucket.k_tt:
+            checks.append(("K4", "N=50000", check_edge_stage(
+                idx, mask, N_BENCH, bf16, rng, heads, hc, "keep")))
+            checks.append(("K4", "N=50000", check_edge_stage_bwd(
+                idx, mask, N_BENCH, bf16, rng, heads, hc, "keep")))
     idx, mask = random_table(N_BENCH, bucket.k_cand, 2_500, rng)
-    checks.append(("score_max", "N=50000", check_score(
+    checks.append(("K5", "N=50000", check_score(
         idx, mask, 2_500, rng, f=cfg.out_channels)))
-    # (b) the launches the main path makes on its first tile, on that
-    # tile's own tables: the tt segments and tb of one layer, scoring
-    tile = trainer._build_batch(plans[0]).to("cuda").map_arrays(
-        lambda a: a[0])
-    segs = [(f"tt[{a}:{b}]", i, m) for a, b, i, m in tt_segments(tile)]
+    # (b) the launches the main paths make on their first tile, on that
+    # tile's own tables: one layer's tt segments and tb, and scoring
+    tile = trainer._build_batch(plans[0], cache=False).to(
+        "cuda").map_arrays(lambda a: a[0])
+    segs = [(f"tt[{a}:{b}]", i, m) for a, b, i, m, _ in tt_segments(tile)]
     segs.append(("tb", tile.tb.idx, tile.tb.mask))
     for name, i, m in segs:
-        checks.append(("edge_stage_fwd", f"tile {name}", check_edge_stage(
-            i, m, tile.n_tx, torch.bfloat16, rng, heads, hc)))
-    checks.append(("score_max", "tile cand", check_score(
+        checks.append(("K1", f"tile {name}", check_edge_stage(
+            i, m, tile.n_tx, bf16, rng, heads, hc)))
+    checks.append(("K5", "tile cand", check_score(
         tile.cand.idx, tile.cand.mask, tile.n_bd, rng,
         f=cfg.out_channels)))
+    ttile = trainer._build_batch(fit_plans[0], cache=False).to(
+        "cuda").map_arrays(lambda a: a[0])
+    tsegs = [(f"tt[{a}:{b}]", i, m)
+             for a, b, i, m, _ in tt_segments(ttile)]
+    tsegs.append(("tb", ttile.tb.idx, ttile.tb.mask))
+    for name, i, m in tsegs:
+        where = f"train tile {name}"
+        checks.append(("K2", where, check_edge_stage(
+            i, m, ttile.n_tx, bf16, rng, heads, hc, "prng")))
+        for mode in ("prng", "nokeep"):
+            checks.append(("K3", where, check_edge_stage_bwd(
+                i, m, ttile.n_tx, bf16, rng, heads, hc, mode)))
+        checks.append(("K4", where, check_edge_stage(
+            i, m, ttile.n_tx, bf16, rng, heads, hc, "keep")))
+        checks.append(("K4", where, check_edge_stage_bwd(
+            i, m, ttile.n_tx, bf16, rng, heads, hc, "keep")))
     for kernel, where, r in checks:
         print(f"{kernel} [{where}] " + json.dumps(r))
 
-    # -- phase 3: the main path
+    # -- phase 3: the predict path
+    n_layers = 2 + cfg.n_mid_layers
     trainer.init()
     torch.cuda.reset_peak_memory_stats()
-    edge_stage_fwd.launches = 0
-    score_max.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     got = trainer.predict(specs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"edge_stage_fwd": edge_stage_fwd.launches,
-                "score_max": score_max.launches}
+    predict_counts = read_counts()
     n_tiles = sum(len(s) for s, _ in plans)
-    n_layers = 2 + cfg.n_mid_layers
     print(f"predict: {n_tiles} tiles, {len(plans)} batches, "
           f"{got['row_index'].size} transcripts, "
           f"{int((got['cell_encoding'] >= 0).sum())} assigned, "
           f"wall {wall:.3f} s, max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
-          f"launches {launches}")
-    want = {"edge_stage_fwd": n_tiles * n_layers * 4, "score_max": n_tiles}
-    if launches != want:
-        raise AssertionError(f"launches {launches}, expected {want}")
+          f"launches {predict_counts}")
+    want = {"fwd": {"nokeep": n_tiles * n_layers * len(segs), "prng": 0,
+                    "keep": 0},
+            "bwd": {"nokeep": 0, "prng": 0, "keep": 0}, "score": n_tiles}
+    if predict_counts != want:
+        raise AssertionError(f"launches {predict_counts}, expected {want}")
     rows = np.sort(got["row_index"])
     if not np.array_equal(rows, np.arange(graph.n_tx)):
         raise AssertionError("predict did not cover every transcript once")
@@ -406,17 +664,88 @@ def main(argv) -> int:
           f"diff {sim_err.max():.3e} (need <= {SIM_ATOL})")
     if same.mean() < MIN_AGREEMENT or sim_err.max() > SIM_ATOL:
         raise AssertionError("GPU and CPU predictions disagree")
-
     if "--profile" in argv:
         profile_predict(trainer, specs, plans,
                         ROOT / "chiprun_out" / "predict_profile.txt")
 
-    def summary(kernel):
+    # -- phase 4: the training path, from the same initial weights
+    trainer.init()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    history = trainer.fit(fit_specs, max_epochs=TRAIN_EPOCHS)
+    torch.cuda.synchronize()
+    fit_wall = time.perf_counter() - t0
+    fit_counts = read_counts()
+    fit_peak = torch.cuda.max_memory_allocated() / 2**20
+    for rec in history:
+        print("fit epoch " + json.dumps(rec))
+    steps = trainer.step_log
+    step_s = [sec for _, _, sec in steps]
+    print(f"fit: {TRAIN_EPOCHS} epochs, {len(steps)} steps, wall "
+          f"{fit_wall:.3f} s, step wall first {step_s[0]:.4f} s, median "
+          f"of the rest {float(np.median(step_s[1:])):.4f} s (all "
+          f"{[round(x, 4) for x in step_s]}), max_memory_allocated "
+          f"{fit_peak:.1f} MiB, launches {fit_counts}")
+    per_step = n_layers * len(tsegs)
+    # a val batch launches (lo + hi, or one tt segment) + tb per layer
+    per_val = n_layers * (3 if val_plans[0][1].n_lo else 2)
+    n_val = TRAIN_EPOCHS * len(val_plans)
+    want = {"fwd": {"nokeep": n_val * per_val,
+                    "prng": len(steps) * per_step, "keep": 0},
+            "bwd": {"nokeep": 0, "prng": len(steps) * per_step, "keep": 0},
+            "score": 0}
+    if fit_counts != want:
+        raise AssertionError(f"fit launches {fit_counts}, expected {want}")
+    if len(steps) != TRAIN_EPOCHS * len(fit_plans) or not all(
+            np.isfinite(v) for rec in history for v in rec.values()):
+        raise AssertionError("fit: wrong step count or non-finite losses")
+
+    # -- K4's own path: the op in keep mode, forward and backward
+    reset_counts()
+    n_keep = drive_keep_op(ttile, heads, hc, bf16, rng)
+    keep_counts = read_counts()
+    print(f"keep-mode op: {n_keep} launches of one layer, launches "
+          f"{keep_counts}")
+    if keep_counts["fwd"]["keep"] != n_keep or \
+            keep_counts["bwd"]["keep"] != n_keep:
+        raise AssertionError(f"keep-mode launches {keep_counts}")
+
+    # -- phase 5: the first training steps again on the CPU
+    cpu = SeggerTrainer(graph, cfg, device="cpu")
+    cpu.init()
+    c_train, _ = cpu.split_tiles(fit_specs)
+    erng, gen = cpu.epoch_streams(0)
+    weights = cpu.weights(0, TRAIN_EPOCHS)
+    t0 = time.perf_counter()
+    cpu_loss = [
+        cpu.train_step(cpu._build_batch(p, cache=False).to("cpu"), gen,
+                       weights)[0]
+        for p in cpu._batch_plans(c_train, shuffle=True,
+                                  rng=erng)[:CPU_STEPS]
+    ]
+    cpu_wall = time.perf_counter() - t0
+    gpu_loss = [rec[0] for _, rec, _ in steps[:CPU_STEPS]]
+    rel = [abs(g - c) / abs(c) for g, c in zip(gpu_loss, cpu_loss)]
+    mean_rel = abs(np.mean(gpu_loss) - np.mean(cpu_loss)) / abs(
+        np.mean(cpu_loss))
+    print(f"cpu train: {CPU_STEPS} steps in {cpu_wall:.1f} s; losses gpu "
+          f"{gpu_loss} cpu {cpu_loss}; relative diff per step {rel} "
+          f"(first need <= {FIRST_STEP_RTOL}), of the mean {mean_rel:.3e} "
+          f"(need <= {MEAN_STEP_RTOL})")
+    if rel[0] > FIRST_STEP_RTOL or mean_rel > MEAN_STEP_RTOL:
+        raise AssertionError("GPU and CPU training losses disagree")
+    if "--profile" in argv:
+        profile_train_step(trainer, fit_plans[0],
+                           ROOT / "chiprun_out" / "train_profile.txt")
+
+    def summary(kernel, tile_prefix, modes=None):
+        rs = [r for k, w, r in checks if k == kernel]
         tile_rs = [r for k, w, r in checks if k == kernel
-                   and w.startswith("tile")]
+                   and w.startswith(tile_prefix)
+                   and (modes is None or r.get("mode") in modes)]
         return {
-            "max_abs_err": max(r["max_abs_err"] for k, _, r in checks
-                               if k == kernel),
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
             # one layer's launches on one tile, at the main path's shapes
             "ms": sum(r["ms"] for r in tile_rs),
             "plain_ms": sum(r["plain_ms"] for r in tile_rs),
@@ -426,19 +755,38 @@ def main(argv) -> int:
             "shape": " + ".join(f"{r['n']}x{r['k']}" for r in tile_rs),
         }
 
-    es_sum, sc_sum = summary("edge_stage_fwd"), summary("score_max")
-    sc_tile = [r for k, w, r in checks if k == "score_max"
+    sc_tile = [r for k, w, r in checks if k == "K5"
                and w.startswith("tile")][0]
+    pg = "segger_tpu/ops/pallas/postgather.py"
+    src = "segger_tpu_torch/csrc/"
     kernels = [
         {"name": "edge_stage_fwd", "route": "cuda",
-         "source": "segger_tpu_torch/csrc/edge_stage_fwd.cu",
-         "replaces": "segger_tpu/ops/pallas/postgather.py:175",
-         "launches": launches["edge_stage_fwd"], **es_sum,
-         "library_ms": None},
+         "source": src + "edge_stage_fwd.cu", "replaces": f"{pg}:175",
+         "launches": predict_counts["fwd"]["nokeep"]
+         + fit_counts["fwd"]["nokeep"],
+         "launches_by_path": {"predict": predict_counts["fwd"]["nokeep"],
+                              "fit": fit_counts["fwd"]["nokeep"]},
+         **summary("K1", "tile"), "library_ms": None},
+        {"name": "edge_stage_fwd_prng", "route": "cuda",
+         "source": src + "edge_stage_fwd.cu", "replaces": f"{pg}:226",
+         "launches": fit_counts["fwd"]["prng"],
+         **summary("K2", "train tile"), "library_ms": None},
+        {"name": "edge_stage_bwd", "route": "cuda",
+         "source": src + "edge_stage_bwd.cu",
+         "replaces": f"{pg}:309", "also_replaces": f"{pg}:334",
+         "launches": fit_counts["bwd"]["prng"] + fit_counts["bwd"]["nokeep"],
+         **summary("K3", "train tile", ("prng",)), "library_ms": None},
+        {"name": "edge_stage_keep", "route": "cuda",
+         "source": src + "edge_stage_bwd.cu",
+         "also_source": src + "edge_stage_fwd.cu",
+         "replaces": f"{pg}:288", "also_replaces": f"{pg}:148",
+         "launches": keep_counts["fwd"]["keep"] + keep_counts["bwd"]["keep"],
+         "path": "gatv2_edge_stage op in keep mode, forward + backward",
+         **summary("K4", "train tile"), "library_ms": None},
         {"name": "score_max", "route": "cuda",
-         "source": "segger_tpu_torch/csrc/score.cu",
+         "source": src + "score.cu",
          "replaces": "segger_tpu/ops/pallas/score.py:60",
-         "launches": launches["score_max"], **sc_sum,
+         "launches": predict_counts["score"], **summary("K5", "tile"),
          "library_ms": sc_tile["library_ms"]},
     ]
     print(card)

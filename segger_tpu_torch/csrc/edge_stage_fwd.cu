@@ -1,17 +1,28 @@
-// Deterministic GATv2 edge-stage forward for Hopper (sm_90a).
+// GATv2 edge-stage forward for Hopper (sm_90a), in three modes.
 //
-// Replaces segger_tpu/ops/pallas/postgather.py::_fwd_kernel_nokeep (with
-// _alpha_c and _head_matrices), the TPU kernel behind
-// gatv2_edge_stage_pallas in deterministic mode.  Per destination row i:
+// Replaces segger_tpu/ops/pallas/postgather.py::_fwd_kernel_nokeep (mode 0),
+// _fwd_kernel_prng (mode 1, with _prng_keep, _mix32 and _prng_config) and
+// _fwd_kernel (mode 2), with _alpha_c and _head_matrices: the TPU kernels
+// behind gatv2_edge_stage_pallas.  Per destination row i:
 //
 //   g_j   = xl[idx[i, j]]                     gathered here, in the kernel
 //   p     = g_j + xr[i]                       rounded to the feature type
 //   s     = p > 0 ? p : slope * p             rounded to the feature type
 //   e_jh  = sum_{c in head h} s_c * att_c     f32 accumulation
 //   alpha = masked softmax_j(e_jh)            f32; 0 on masked slots
-//   out_i = sum_j alpha_jh * g_j              f32 accumulation, stored in T
+//   out_i = sum_j alpha_jh * keep_jh * g_j    f32 accumulation, stored in T
 //
-// and alpha (N, K, H) f32 is written out, as the TPU kernel does.
+// alpha (N, K, H) f32 is written out before dropout, as the TPU kernels
+// do.  keep is 1 (mode 0), read from an (N, K, H) tensor (mode 2), or
+// hashed from the position and two seed words (mode 1):
+//
+//   pos  = row*K*H + slot*H + head            wrapping 32-bit arithmetic
+//   x    = fmix32(fmix32(pos ^ s0) ^ (s1 + 0x9E3779B9))
+//   keep = (x & 0x7FFFFFFF) <= thresh ? 1/(1-rate) : 0
+//
+// which is the TPU kernel's stream bit for bit: its position is global (the
+// block offset is added), so the stream does not depend on the blocking,
+// and the backward (edge_stage_bwd.cu) regenerates it from the same words.
 //
 // What bounds it on an H100: bytes.  Each valid slot reads one source row
 // (H*C values) at random, a few hundred bytes, against a few flops per
@@ -20,67 +31,32 @@
 // The TPU kernel read a gathered (N*K, H*C) tensor that XLA had written
 // to HBM first, because Mosaic could not gather rows; this kernel gathers
 // through idx itself, so that tensor never exists, and it skips masked
-// slots, so padding costs no row read.
+// slots, so padding costs no row read.  In mode 1 no keep tensor exists
+// either.
 //
 // Design: one warp per destination row, each lane holding HC/32
 // contiguous channels.  Pass 1 forms each valid slot's per-head logits by
 // a warp-shuffle reduction and stores them in the alpha row; the softmax
 // then runs over the K slots with lanes striding the slots; pass 2
 // gathers the valid rows again (the first read left them in L1/L2) and
-// accumulates sum_j alpha * g in registers.  Keeping the rows in shared
-// memory or loading them by TMA is left to a later change.
+// accumulates sum_j alpha * keep * g in registers.  Keeping the rows in
+// shared memory or loading them by TMA is left to a later change.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "edge_stage_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kWarpsPerBlock = 8;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
-}
-
-// an f32 value rounded to the feature type, back in f32
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
+using namespace sgt;
 
 // VPL: channels per lane, a power of two with 32 * VPL >= hc.
-template <typename T, int VPL>
+template <typename T, int VPL, int MODE>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 edge_stage_fwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
                       const T* __restrict__ att,
                       const int32_t* __restrict__ idx,
-                      const uint8_t* __restrict__ mask, int n, int n_src,
-                      int k, int heads, int hc, float slope,
+                      const uint8_t* __restrict__ mask,
+                      const T* __restrict__ keep, int n, int n_src, int k,
+                      int heads, int hc, float slope, KeepHash hash,
                       T* __restrict__ out, float* __restrict__ alpha) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -96,7 +72,7 @@ edge_stage_fwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
     const bool in = c < hc;
     xr_v[v] = in ? to_f32(xr[(size_t)row * hc + c]) : 0.f;
     att_v[v] = in ? to_f32(att[c]) : 0.f;
-    head_v[v] = in ? c / ch : -1;
+    head_v[v] = in ? c / ch : 0;
   }
   const int32_t* idx_row = idx + (size_t)row * k;
   const uint8_t* mask_row = mask + (size_t)row * k;
@@ -126,7 +102,7 @@ edge_stage_fwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
       float part = 0.f;
 #pragma unroll
       for (int v = 0; v < VPL; ++v)
-        if (head_v[v] == h) part += prod[v];
+        if (c0 + v < hc && head_v[v] == h) part += prod[v];
       part = warp_sum(part);
       if (lane == 0) alpha_row[j * heads + h] = part;
     }
@@ -143,6 +119,7 @@ edge_stage_fwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
     for (int j = lane; j < k; j += 32)
       if (mask_row[j]) den += expf(alpha_row[j * heads + h] - m);
     den = fmaxf(warp_sum(den), 1e-30f);
+    __syncwarp();
     for (int j = lane; j < k; j += 32) {
       const float e = alpha_row[j * heads + h];
       alpha_row[j * heads + h] = mask_row[j] ? expf(e - m) / den : 0.f;
@@ -150,7 +127,7 @@ edge_stage_fwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
   }
   __syncwarp();
 
-  // pass 2: out = sum_j alpha_j * g_j over the valid slots
+  // pass 2: out = sum_j alpha_j * keep_j * g_j over the valid slots
   float acc[VPL];
 #pragma unroll
   for (int v = 0; v < VPL; ++v) acc[v] = 0.f;
@@ -158,10 +135,17 @@ edge_stage_fwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
     if (!mask_row[j]) continue;
     const int src = min(max(idx_row[j], 0), n_src - 1);
     const T* g = xl + (size_t)src * hc;
+    const size_t slot = (size_t)row * k + j;
 #pragma unroll
     for (int v = 0; v < VPL; ++v) {
       const int c = c0 + v;
-      if (c < hc) acc[v] += alpha_row[j * heads + head_v[v]] * to_f32(g[c]);
+      if (c < hc) {
+        const int h = head_v[v];
+        const float w = alpha_row[j * heads + h] *
+                        keep_value<T, MODE>(keep, hash, row, j, h, k, heads,
+                                            slot);
+        acc[v] += w * to_f32(g[c]);
+      }
     }
   }
 #pragma unroll
@@ -171,18 +155,19 @@ edge_stage_fwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
   }
 }
 
-template <typename T>
+template <typename T, int MODE>
 void launch(const void* xl, const void* xr, const void* att, const void* idx,
-            const void* mask, int n, int n_src, int k, int heads, int hc,
-            float slope, void* out, void* alpha, cudaStream_t stream) {
+            const void* mask, const void* keep, int n, int n_src, int k,
+            int heads, int hc, float slope, KeepHash hash, void* out,
+            void* alpha, cudaStream_t stream) {
   const dim3 block(32 * kWarpsPerBlock);
   const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const int vpl = (hc + 31) / 32;
 #define SGT_LAUNCH(V)                                                       \
-  edge_stage_fwd_kernel<T, V><<<grid, block, 0, stream>>>(                  \
+  edge_stage_fwd_kernel<T, V, MODE><<<grid, block, 0, stream>>>(            \
       (const T*)xl, (const T*)xr, (const T*)att, (const int32_t*)idx,       \
-      (const uint8_t*)mask, n, n_src, k, heads, hc, slope, (T*)out,         \
-      (float*)alpha)
+      (const uint8_t*)mask, (const T*)keep, n, n_src, k, heads, hc, slope,  \
+      hash, (T*)out, (float*)alpha)
   if (vpl <= 1) SGT_LAUNCH(1);
   else if (vpl <= 2) SGT_LAUNCH(2);
   else if (vpl <= 4) SGT_LAUNCH(4);
@@ -191,23 +176,47 @@ void launch(const void* xl, const void* xr, const void* att, const void* idx,
 #undef SGT_LAUNCH
 }
 
+template <typename T>
+void launch_mode(int mode, const void* xl, const void* xr, const void* att,
+                 const void* idx, const void* mask, const void* keep, int n,
+                 int n_src, int k, int heads, int hc, float slope,
+                 KeepHash hash, void* out, void* alpha, cudaStream_t stream) {
+  if (mode == kModePrng)
+    launch<T, kModePrng>(xl, xr, att, idx, mask, keep, n, n_src, k, heads, hc,
+                         slope, hash, out, alpha, stream);
+  else if (mode == kModeKeep)
+    launch<T, kModeKeep>(xl, xr, att, idx, mask, keep, n, n_src, k, heads, hc,
+                         slope, hash, out, alpha, stream);
+  else
+    launch<T, kModeNoKeep>(xl, xr, att, idx, mask, keep, n, n_src, k, heads,
+                           hc, slope, hash, out, alpha, stream);
+}
+
 }  // namespace
 
 // xl (n_src, hc), xr (n, hc), att (hc,) in the feature type (is_bf16:
 // bfloat16, else float32); idx (n, k) int32; mask (n, k) bool (1 byte);
-// out (n, hc) feature type; alpha (n, k, heads) float32.  The caller
-// checks shapes and types and guarantees n > 0, 0 < hc <= 512,
+// keep (n, k, heads) feature type, read in mode 2 only; seed0/seed1 the
+// two seed words, thresh and inv_keep the dropout threshold and
+// multiplier, read in mode 1 only; out (n, hc) feature type; alpha (n, k,
+// heads) float32.  mode: 0 no dropout, 1 hashed dropout, 2 keep tensor.
+// The caller checks shapes and types and guarantees n > 0, 0 < hc <= 512,
 // hc % heads == 0.  Returns cudaGetLastError() after the launch.
 extern "C" int sgt_edge_stage_fwd(const void* xl, const void* xr,
                                   const void* att, const void* idx,
-                                  const void* mask, int n, int n_src, int k,
-                                  int heads, int hc, float slope, int is_bf16,
-                                  void* out, void* alpha, void* stream) {
+                                  const void* mask, const void* keep, int n,
+                                  int n_src, int k, int heads, int hc,
+                                  float slope, int is_bf16, int mode,
+                                  uint32_t seed0, uint32_t seed1,
+                                  uint32_t thresh, float inv_keep, void* out,
+                                  void* alpha, void* stream) {
+  const KeepHash hash{seed0, seed1, thresh, inv_keep};
   if (is_bf16)
-    launch<__nv_bfloat16>(xl, xr, att, idx, mask, n, n_src, k, heads, hc,
-                          slope, out, alpha, (cudaStream_t)stream);
+    launch_mode<__nv_bfloat16>(mode, xl, xr, att, idx, mask, keep, n, n_src,
+                               k, heads, hc, slope, hash, out, alpha,
+                               (cudaStream_t)stream);
   else
-    launch<float>(xl, xr, att, idx, mask, n, n_src, k, heads, hc, slope, out,
-                  alpha, (cudaStream_t)stream);
+    launch_mode<float>(mode, xl, xr, att, idx, mask, keep, n, n_src, k, heads,
+                       hc, slope, hash, out, alpha, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

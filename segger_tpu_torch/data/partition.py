@@ -1,7 +1,9 @@
-"""Tiling and static-shape tile extraction for prediction (host side).
+"""Tiling and static-shape tile extraction (host side).
 
-Prediction tiles are quadtree leaves expanded by a halo margin, with an
-interior mask so each transcript is predicted exactly once.  Each tile is
+Training tiles are quadtree leaves with their cross-tile edges dropped and
+an interior mask shrunk by a margin; prediction tiles are quadtree leaves
+expanded by a halo margin, with an interior mask so each transcript is
+predicted exactly once.  Each tile is
 extracted into padded, fixed-shape arrays (:class:`TileGraph`) whose
 widths come from a shape bucket shared by every tile of a batch; the
 tables are byte for byte those of ``segger_tpu/data/partition.py``.
@@ -50,6 +52,48 @@ def _group_rows_by_label(labels: np.ndarray, n_groups: int,
     starts = np.searchsorted(sl, np.arange(n_groups))
     ends = np.searchsorted(sl, np.arange(n_groups), side="right")
     return [np.sort(order[s:e]) for s, e in zip(starts, ends)]
+
+
+def make_fit_tiles(
+    graph: HostGraph, tree: QuadTree, margin: float = 20.0
+) -> List[TileSpec]:
+    """Training tiles: nodes labelled by leaf, cross-tile edges dropped,
+    interior = the leaf shrunk by ``margin``; ``n_edges`` counts the
+    tile's tt and sg edges (for bin packing)."""
+    tx_lab = tree.label(graph.tx_pos)
+    bd_lab = tree.label(graph.bd_pos)
+    tx_int = tree.shrunk_mask(graph.tx_pos, tx_lab, margin)
+    bd_int = tree.shrunk_mask(graph.bd_pos, bd_lab, margin)
+
+    tt_same = tx_lab[graph.tt_src] == tx_lab[graph.tt_dst]
+    sg_same = tx_lab[graph.sg_src] == bd_lab[graph.sg_dst]
+    tt_counts = np.bincount(
+        tx_lab[graph.tt_dst][tt_same & (tx_lab[graph.tt_dst] >= 0)],
+        minlength=tree.n_leaves,
+    )
+    sg_counts = np.bincount(
+        bd_lab[graph.sg_dst][sg_same & (bd_lab[graph.sg_dst] >= 0)],
+        minlength=tree.n_leaves,
+    )
+
+    tx_groups = _group_rows_by_label(tx_lab, tree.n_leaves)
+    bd_groups = _group_rows_by_label(bd_lab, tree.n_leaves)
+    tiles = []
+    for li in range(tree.n_leaves):
+        tx_rows = tx_groups[li]
+        bd_rows = bd_groups[li]
+        if tx_rows.size == 0:
+            continue
+        tiles.append(
+            TileSpec(
+                tx_rows=tx_rows,
+                bd_rows=bd_rows,
+                tx_interior=tx_int[tx_rows],
+                bd_interior=bd_int[bd_rows],
+                n_edges=int(tt_counts[li] + sg_counts[li]),
+            )
+        )
+    return tiles
 
 
 def make_predict_tiles(
@@ -631,3 +675,34 @@ def best_fit_decreasing(
             bins[best].append(i)
             loads[best] += v
     return [np.asarray(b) for b in bins]
+
+
+def first_fit_decreasing_bucketed(
+    values: np.ndarray,
+    max_num: float,
+    rng: Optional[np.random.Generator] = None,
+    n_buckets: int = 10,
+) -> List[np.ndarray]:
+    """First-fit decreasing with shuffling inside value-similarity
+    buckets (the reference's shuffled train packer), then the bins
+    shuffled.  The same ``rng`` state gives the JAX package's bins."""
+    values = np.asarray(values)
+    rng = rng or np.random.default_rng()
+    order = np.argsort(-values, kind="stable")
+    chunks = np.array_split(order, n_buckets)
+    order = np.concatenate([rng.permutation(c) for c in chunks if c.size])
+    bins: List[list] = []
+    loads: List[float] = []
+    for i in order:
+        v = values[i]
+        for b in range(len(bins)):
+            if loads[b] + v <= max_num:
+                bins[b].append(i)
+                loads[b] += v
+                break
+        else:
+            bins.append([i])
+            loads.append(float(v))
+    out = [np.asarray(b) for b in bins]
+    rng.shuffle(out)
+    return out

@@ -129,6 +129,40 @@ class QuadTree:
             active = inside & (self.node_leaf[node] < 0)
         return np.where(inside, self.node_leaf[node], -1)
 
+    def shrunk_mask(
+        self, points: np.ndarray, labels: np.ndarray, margin: float
+    ) -> np.ndarray:
+        """True where a point lies inside its leaf shrunk by ``margin`` on
+        every side: the training interior mask.  A leaf that the margin
+        empties halves its margin until some point survives or the
+        margin vanishes, as the reference does."""
+        points = np.asarray(points, dtype=np.float64)
+        out = np.zeros(len(points), dtype=bool)
+        x, y = points[:, 0], points[:, 1]
+        order = np.argsort(labels, kind="stable")
+        lab_sorted = labels[order]
+        starts = np.searchsorted(lab_sorted, np.arange(self.n_leaves))
+        ends = np.searchsorted(
+            lab_sorted, np.arange(self.n_leaves), side="right"
+        )
+        for li, (x0, y0, x1, y1) in enumerate(self.leaf_bounds):
+            idx = order[starts[li] : ends[li]]
+            if idx.size == 0:
+                continue
+            m = margin
+            while True:
+                inner = (
+                    (x[idx] >= x0 + m)
+                    & (x[idx] < x1 - m)
+                    & (y[idx] >= y0 + m)
+                    & (y[idx] < y1 - m)
+                )
+                if inner.any() or m < 1e-6:
+                    break
+                m /= 2
+            out[idx[inner]] = True
+        return out
+
     def expanded_label_multi(
         self, points: np.ndarray, margin: float
     ) -> tuple[np.ndarray, np.ndarray]:

@@ -1,5 +1,6 @@
-"""Weights interchange between the flax parameter tree of
-``segger_tpu.models.ISTEncoder`` and this package's ``ISTEncoder``.
+"""Weights and Adam-state interchange between the flax parameter tree
+of ``segger_tpu.models.ISTEncoder`` (with optax's Adam state) and this
+package's ``ISTEncoder`` (with ``torch.optim.Adam``).
 
 Module names match the flax tree, so a flax path maps to a state-dict
 key by joining with dots; a flax ``Dense.kernel`` (in, out) becomes a
@@ -60,3 +61,60 @@ def nest(flat: Dict[Tuple[str, ...], np.ndarray]) -> dict:
             node = node.setdefault(key, {})
         node[path[-1]] = a
     return out
+
+
+def _flax_array(name: str, t: torch.Tensor) -> Tuple[Tuple[str, ...],
+                                                      np.ndarray]:
+    """A state-dict entry as ``(flax path, array)``: a Linear weight
+    (out, in) becomes the flax kernel (in, out)."""
+    *mods, leaf = name.split(".")
+    a = t.detach().float().cpu().numpy()
+    if leaf == "weight":
+        leaf, a = "kernel", np.ascontiguousarray(a.T)
+    return ("params", *mods, leaf), a
+
+
+def params_to_flax(model: nn.Module) -> dict:
+    """The inverse of :func:`params_from_flax`: the model's parameters as
+    a flax-layout nested dict of float32 arrays (with the top-level
+    'params' collection)."""
+    return nest(dict(_flax_array(n, t)
+                     for n, t in model.state_dict().items()))
+
+
+def adam_state_to_optax(model: nn.Module,
+                        optimizer: torch.optim.Adam) -> tuple:
+    """A ``torch.optim.Adam``'s state in optax's ``ScaleByAdamState``
+    layout: ``(count int32, mu, nu)``, ``mu``/``nu`` flax-layout nested
+    dicts over the parameters the optimizer updates (a frozen parameter
+    is left out, as ``optax.masked`` leaves it out).  A parameter with no
+    state yet has zero moments."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    mu, nu, count = {}, {}, 0
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            if st:
+                count = int(st["step"])
+            m = st.get("exp_avg", torch.zeros_like(p))
+            v = st.get("exp_avg_sq", torch.zeros_like(p))
+            path, a = _flax_array(names[id(p)], m)
+            mu[path] = a
+            nu[path] = _flax_array(names[id(p)], v)[1]
+    return np.asarray(count, np.int32), nest(mu), nest(nu)
+
+
+def adam_state_from_optax(model: nn.Module, optimizer: torch.optim.Adam,
+                          count, mu: Mapping, nu: Mapping) -> None:
+    """Install optax-layout Adam moments (see :func:`adam_state_to_optax`)
+    into ``optimizer``, which must update the same parameters."""
+    mu_sd, nu_sd = params_from_flax(mu), params_from_flax(nu)
+    names = {id(p): n for n, p in model.named_parameters()}
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            n = names[id(p)]
+            optimizer.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": mu_sd[n].to(p.device).reshape(p.shape).clone(),
+                "exp_avg_sq": nu_sd[n].to(p.device).reshape(p.shape).clone(),
+            }

@@ -1,5 +1,5 @@
 """ISTEncoder: heterogeneous GATv2 stack embedding transcripts and cells
-into a shared metric space (deterministic forward).
+into a shared metric space.
 
 Architecture of the reference's ``ISTEncoder`` and of
 ``segger_tpu/models/encoder.py``:
@@ -11,7 +11,9 @@ Architecture of the reference's ``ISTEncoder`` and of
 
 Each hetero layer runs a GATv2 conv over tx->tx neighbor edges and one
 over the tx->bd supervision ('belongs') edges, the reference's quirk; its
-bd->tx conv never receives edges and is not built here.
+bd->tx conv never receives edges and is not built here.  Every conv has
+the attention dropout ``attn_dropout`` (0.2, the reference's), active in
+``forward(..., deterministic=False)``.
 
 Submodule and parameter names follow the flax parameter tree, so
 ``models/convert.py`` maps one onto the other by name.
@@ -26,7 +28,7 @@ import torch.nn.functional as F
 
 from ..data.graph import TileGraph
 from ..ops.embed import embed_lookup
-from .gatv2 import GATv2Conv, Segment
+from .gatv2 import GATv2Conv, Segment, SeedSource
 from .positional import Positional2dEmbedder, dense
 
 
@@ -68,36 +70,40 @@ class HeteroGATLayer(nn.Module):
     destination type."""
 
     def __init__(self, in_channels: int, out_channels: int, heads: int,
-                 dtype: Optional[torch.dtype] = None):
+                 dropout: float = 0.2, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.tt = GATv2Conv(in_channels, out_channels, heads, dtype=dtype)
-        self.tb = GATv2Conv(in_channels, out_channels, heads, dtype=dtype)
+        self.tt = GATv2Conv(in_channels, out_channels, heads,
+                            dropout=dropout, dtype=dtype)
+        self.tb = GATv2Conv(in_channels, out_channels, heads,
+                            dropout=dropout, dtype=dtype)
 
     def forward(self, x_tx, x_bd, tt_segments: List[Segment],
-                tb_segments: List[Segment]):
-        return (self.tt(x_tx, x_tx, tt_segments),
-                self.tb(x_tx, x_bd, tb_segments))
+                tb_segments: List[Segment], deterministic: bool = True,
+                seeds: Optional[SeedSource] = None):
+        out_tx = self.tt(x_tx, x_tx, tt_segments, deterministic, seeds)
+        return out_tx, self.tb(x_tx, x_bd, tb_segments, deterministic, seeds)
 
 
 def tt_segments(tile: TileGraph) -> List[Segment]:
     """The tt edge stage's launches over a degree-bucketed tile: the
     extra-low and low segments at their narrow widths, then the
-    full-width tail.  As in the JAX package the split is taken only when
-    the tile carries the per-segment transpose tables; otherwise the
-    whole table is one segment."""
+    full-width tail, each with its transpose table.  As in the JAX
+    package the split is taken only when the tile carries the
+    per-segment transpose tables; otherwise the whole table is one
+    segment with the full transpose (if any)."""
     idx, mask = tile.tt.idx, tile.tt.mask
     n = idx.shape[0]
     if not (tile.tt_n_lo > 0 and tile.tt_lo_t is not None
             and tile.tt_hi_t is not None):
-        return [(0, n, idx, mask)]
+        return [(0, n, idx, mask, tile.tt_t)]
     if tile.tt_n_xlo > 0 and tile.tt_xlo_t is not None:
-        bounds = [(0, tile.tt_n_xlo, tile.tt_k_xlo),
-                  (tile.tt_n_xlo, tile.tt_n_lo, tile.tt_k_lo)]
+        bounds = [(0, tile.tt_n_xlo, tile.tt_k_xlo, tile.tt_xlo_t),
+                  (tile.tt_n_xlo, tile.tt_n_lo, tile.tt_k_lo, tile.tt_lo_t)]
     else:
-        bounds = [(0, tile.tt_n_lo, tile.tt_k_lo)]
-    bounds.append((tile.tt_n_lo, n, idx.shape[1]))
-    return [(a, b, idx[a:b, :k].contiguous(), mask[a:b, :k].contiguous())
-            for a, b, k in bounds]
+        bounds = [(0, tile.tt_n_lo, tile.tt_k_lo, tile.tt_lo_t)]
+    bounds.append((tile.tt_n_lo, n, idx.shape[1], tile.tt_hi_t))
+    return [(a, b, idx[a:b, :k].contiguous(), mask[a:b, :k].contiguous(), t)
+            for a, b, k, t in bounds]
 
 
 class ISTEncoder(nn.Module):
@@ -112,6 +118,7 @@ class ISTEncoder(nn.Module):
         n_heads: int = 3,
         normalize_embeddings: bool = True,
         use_positional_embeddings: bool = True,
+        attn_dropout: float = 0.2,
         dtype: Optional[torch.dtype] = None,
     ):
         """``dtype``: compute dtype of the GATv2 layers (e.g.
@@ -128,7 +135,8 @@ class ISTEncoder(nn.Module):
         widths = [hidden_channels] * (1 + n_mid_layers) + [out_channels]
         for i, w in enumerate(widths):
             self.add_module(
-                f"conv_{i}", HeteroGATLayer(width, w, n_heads, dtype)
+                f"conv_{i}",
+                HeteroGATLayer(width, w, n_heads, attn_dropout, dtype)
             )
             width = n_heads * w
         self.n_layers = len(widths)
@@ -156,9 +164,16 @@ class ISTEncoder(nn.Module):
             with torch.no_grad():
                 lin.bias.uniform_(-bound, bound, generator=generator)
 
-    def forward(self, tile: TileGraph) -> Dict[str, torch.Tensor]:
+    def forward(self, tile: TileGraph, deterministic: bool = True,
+                seeds: Optional[SeedSource] = None
+                ) -> Dict[str, torch.Tensor]:
         """Embeddings of one tile (tensors on the model's device, no
-        batch axis): ``{"tx": (Ntx, out), "bd": (Nbd, out)}``."""
+        batch axis): ``{"tx": (Ntx, out), "bd": (Nbd, out)}``.
+
+        ``deterministic=False`` turns the attention dropout on; ``seeds``
+        then yields each edge-stage launch's two seed words in launch
+        order (layer by layer: the tt segments, then tb), drawn from
+        torch's default generator when None."""
         x_tx = self.gene_embedding(tile.tx_gene)
         x_bd = dense(self.bd_linear, tile.bd_x)
         if self.pos_emb is not None:
@@ -170,10 +185,11 @@ class ISTEncoder(nn.Module):
         x_tx, x_bd = F.gelu(x_tx), F.gelu(x_bd)
 
         tt_segs = tt_segments(tile)
-        tb_segs = [(0, tile.tb.idx.shape[0], tile.tb.idx, tile.tb.mask)]
+        tb_segs = [(0, tile.tb.idx.shape[0], tile.tb.idx, tile.tb.mask,
+                    tile.tb_t)]
         for i in range(self.n_layers):
             x_tx, x_bd = getattr(self, f"conv_{i}")(
-                x_tx, x_bd, tt_segs, tb_segs)
+                x_tx, x_bd, tt_segs, tb_segs, deterministic, seeds)
             x_tx, x_bd = F.gelu(x_tx), F.gelu(x_bd)
 
         x_tx = dense(self.lin_last_tx, x_tx)

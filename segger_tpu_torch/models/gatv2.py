@@ -1,4 +1,4 @@
-"""GATv2 convolution over padded-CSR adjacency (deterministic forward).
+"""GATv2 convolution over padded-CSR adjacency, with attention dropout.
 
 Math of PyG's ``GATv2Conv`` with ``share_weights=False``,
 ``concat=True``, ``negative_slope=0.2``:
@@ -7,12 +7,17 @@ Math of PyG's ``GATv2Conv`` with ``share_weights=False``,
     x_r = W_r x_dst + b_r                        (per destination node)
     e_ij = a_h . leaky_relu(x_l[j] + x_r[i])     (per edge, per head h)
     alpha = softmax_j(e_ij)                      (over i's in-edges)
-    out_i = concat_h( sum_j alpha_ij x_l[j,h] ) + bias
+    out_i = concat_h( sum_j alpha_ij keep_ij x_l[j,h] ) + bias
 
-The projections are ``F.linear``; the edge stage is the CUDA kernel of
-``ops/postgather.py`` (its plain version on the CPU), launched once per
-degree-bucket segment of the destination rows.  Destinations with no
-in-edge output ``bias`` only.
+The projections are ``F.linear``; the edge stage is the CUDA kernel pair
+of ``ops/postgather.py`` (their plain versions on the CPU), launched once
+per degree-bucket segment of the destination rows through
+``EdgeStageFunction``.  Destinations with no in-edge output ``bias`` only.
+
+Dropout follows the JAX package's TPU path: when it is on, every launch
+takes two fresh 32-bit seed words from ``seeds`` (one per tt segment, in
+segment order, then one per launch of the next conv), and the keep
+multipliers are hashed from them inside the kernels.
 
 Types follow ``flax.linen.Dense(dtype=...)``: with a compute dtype, the
 projections and ``att`` run in it, and adding the float32 ``bias``
@@ -20,17 +25,32 @@ promotes each conv's output to float32.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from ..ops.postgather import edge_stage_fwd
+from ..ops.padded_csr import PaddedCSR
+from ..ops.postgather import gatv2_edge_stage
 from .positional import dense
 
-# one launch of the edge stage: destination rows [start, stop) and their
-# contiguous (stop - start, K) idx / mask tables
-Segment = Tuple[int, int, torch.Tensor, torch.Tensor]
+# one launch of the edge stage: destination rows [start, stop), their
+# contiguous (stop - start, K) idx / mask tables and the segment's
+# transpose table (flat slot positions; None without one)
+Segment = Tuple[int, int, torch.Tensor, torch.Tensor, Optional[PaddedCSR]]
+# yields the next launch's two seed words
+SeedSource = Callable[[], Tuple[int, int]]
+
+
+def torch_seed_source(generator: Optional[torch.Generator] = None
+                      ) -> SeedSource:
+    """Seed words drawn from a CPU ``torch.Generator`` (the default one
+    when None), two per call."""
+    def draw():
+        w = torch.randint(0, 2**32, (2,), dtype=torch.int64,
+                          generator=generator)
+        return int(w[0]), int(w[1])
+    return draw
 
 
 def glorot_uniform_(t: torch.Tensor, fan_in: int, fan_out: int,
@@ -44,12 +64,13 @@ class GATv2Conv(nn.Module):
     """Single-edge-type GATv2 attention convolution (bipartite-capable)."""
 
     def __init__(self, in_channels: int, out_channels: int, heads: int = 1,
-                 negative_slope: float = 0.2,
+                 negative_slope: float = 0.2, dropout: float = 0.0,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         hc = heads * out_channels
         self.heads, self.out_channels = heads, out_channels
         self.negative_slope = negative_slope
+        self.dropout = dropout
         self.dtype = dtype
         self.lin_l = nn.Linear(in_channels, hc)
         self.lin_r = nn.Linear(in_channels, hc)
@@ -66,15 +87,24 @@ class GATv2Conv(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x_src: torch.Tensor, x_dst: torch.Tensor,
-                segments: Sequence[Segment]) -> torch.Tensor:
+                segments: Sequence[Segment], deterministic: bool = True,
+                seeds: Optional[SeedSource] = None) -> torch.Tensor:
         """``segments`` cover the destination rows in order (one segment
-        for an unbucketed table)."""
+        for an unbucketed table).  With ``deterministic=False`` and a
+        dropout rate, each launch draws its seed words from ``seeds``."""
         xl = dense(self.lin_l, x_src, self.dtype)
         xr = dense(self.lin_r, x_dst, self.dtype)
         att = self.att[0].to(xl.dtype)
+        dropout_on = self.dropout > 0.0 and not deterministic
+        if dropout_on and seeds is None:
+            seeds = torch_seed_source()
         outs = [
-            edge_stage_fwd(xl, xr[a:b], att, idx, mask, self.heads,
-                           self.negative_slope)[0]
-            for a, b, idx, mask in segments
+            gatv2_edge_stage(
+                xl, xr[a:b], att, idx, mask, self.heads,
+                self.negative_slope, csr_t,
+                seed=seeds() if dropout_on else None,
+                rate=self.dropout if dropout_on else 0.0,
+            )
+            for a, b, idx, mask, csr_t in segments
         ]
         return torch.cat(outs, dim=0) + self.bias

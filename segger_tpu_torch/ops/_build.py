@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, under ``build/kernels/`` at
-the root of the checkout.  The file name carries a hash of the source and
-flags, so an edited source is rebuilt and an unchanged one is reused
-within a checkout.  A missing ``nvcc`` or a failed build raises; nothing
+the root of the checkout.  The file name carries a hash of the source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source
+is rebuilt and an unchanged one is reused within a checkout.  A missing ``nvcc`` or a failed build raises; nothing
 falls back to another implementation.
 """
 from __future__ import annotations
@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-KERNELS = ("edge_stage_fwd", "score")
+KERNELS = ("edge_stage_fwd", "edge_stage_bwd", "score")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -43,10 +43,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}_{digest}.so"
 
 

@@ -1,14 +1,34 @@
-"""Embedding lookup (forward).
+"""Embedding lookup with the JAX package's semantics, forward and
+backward.
 
 ``jnp.take`` in the JAX package wraps a negative id once, so an unknown
 gene (-1) reads the table's last row; ``F.embedding`` would raise on it.
-This lookup gives what JAX gives.
+The JAX backward is a one-hot matmul (``segger_tpu/ops/embed.py``), so an
+id outside ``[0, V)`` sends no gradient anywhere.  This lookup gives what
+JAX gives in both directions; its backward is a plain ``index_add_`` of
+the valid rows, accumulated in float32.
 """
 from __future__ import annotations
 
 import torch
 
 
+class _EmbedLookup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.n_vocab = table.shape[0]
+        return table[torch.where(ids < 0, ids + table.shape[0], ids)]
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        ok = (ids >= 0) & (ids < ctx.n_vocab)
+        grad = torch.zeros((ctx.n_vocab, g.shape[-1]), dtype=torch.float32,
+                           device=g.device)
+        grad.index_add_(0, ids[ok], g[ok].float())
+        return grad.to(g.dtype), None
+
+
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    ids = ids.long()
-    return table[torch.where(ids < 0, ids + table.shape[0], ids)]
+    return _EmbedLookup.apply(table, ids.long())

@@ -1,10 +1,14 @@
-"""Tiled prediction driver for the IST encoder (PyTorch).
+"""Training and tiled prediction driver for the IST encoder (PyTorch).
 
-``SeggerTrainer.predict`` bin-packs halo tiles into batches, extracts
-each batch on a background thread, moves it to the device, runs the
-encoder and the candidate scoring on every tile, and returns the
-assignment of each interior transcript.  Training (``fit``, the losses,
-Adam) waits for a later slice of the port.
+``SeggerTrainer.fit`` trains on margin tiles with the JAX package's
+semantics: a seeded train/val split of the tiles, shuffled bucketed
+packing per epoch, the cosine loss-weight schedule, the joint masked
+means of the three losses across the tiles of a step, Adam, a
+deterministic validation pass, and checkpoints that the JAX package
+reads.  ``SeggerTrainer.predict`` bin-packs halo tiles into batches,
+extracts each batch on a background thread, moves it to the device,
+runs the encoder and the candidate scoring on every tile, and returns
+the assignment of each interior transcript.
 
 The trainer runs on CUDA unless the caller asks for the CPU
 (``device="cpu"``), and raises when no CUDA device is present rather
@@ -13,8 +17,11 @@ than falling back.
 from __future__ import annotations
 
 import dataclasses
+import logging
+import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,21 +34,30 @@ from ..data.partition import (
     best_fit_decreasing,
     empty_tile,
     extract_tile,
+    first_fit_decreasing_bucketed,
     merge_buckets,
     stack_tiles,
     tile_bucket,
 )
+from ..models import losses as L
 from ..models.convert import params_from_flax
 from ..models.encoder import ISTEncoder
+from ..models.gatv2 import torch_seed_source
 from ..ops.gather_agg import score_candidates
+from ..ops.padded_csr import PaddedCSR
+from .checkpoint import load_checkpoint, save_checkpoint
 from .prefetch import PrefetchIterator
+
+logger = logging.getLogger(__name__)
 
 
 @dataclass
 class TrainConfig:
     """Hyperparameters (defaults follow the reference's LitISTEncoder /
     ISTDataModule), as in ``segger_tpu.train.trainer.TrainConfig``.
-    Fields that only training reads are kept for the training slice."""
+    ``scan_steps`` is accepted and changes nothing: the JAX package uses
+    it to run several steps in one dispatch, with the same result as
+    running them one by one, which is what this trainer does."""
 
     in_channels: int = 16
     hidden_channels: int = 64
@@ -89,7 +105,7 @@ def resolve_device(device=None) -> torch.device:
 
 
 class SeggerTrainer:
-    """Predict driver over a HostGraph and tile specs."""
+    """Train and predict driver over a HostGraph and tile specs."""
 
     def __init__(
         self,
@@ -117,15 +133,27 @@ class SeggerTrainer:
             normalize_embeddings=cfg.normalize_embeddings,
             use_positional_embeddings=cfg.use_positional_embeddings,
             dtype=self.dtype,
-        ).eval()
+        )
+        self.tx_similarity = torch.from_numpy(
+            np.asarray(graph.tx_similarity, np.float32)).to(self.device)
+        self.bd_similarity = torch.from_numpy(
+            np.asarray(graph.bd_similarity, np.float32)).to(self.device)
         self.initialized = False
+        self.optimizer: Optional[torch.optim.Adam] = None
+        self.history: List[Dict] = []
+        # per training step: (epoch, [loss, loss_tx, loss_bd, loss_sg],
+        # host seconds from the batch's arrival to its loss on the host)
+        self.step_log: List[Tuple[int, List[float], float]] = []
+        # epoch-spanning tile-extraction cache (TrainConfig.tile_cache_gb)
+        self._tile_cache: Dict = {}
+        self._tile_cache_bytes = 0
 
     # ------------------------------------------------------------------
     def init(self) -> None:
         """Draw the parameters from ``cfg.seed`` (on the CPU, so the draw
-        does not depend on the device) and install the pretrained gene
-        embedding.  The model is sized from the graph, so no template
-        tile is needed."""
+        does not depend on the device), install the pretrained gene
+        embedding and make a fresh optimizer.  The model is sized from
+        the graph, so no template tile is needed."""
         gen = torch.Generator().manual_seed(self.cfg.seed)
         model = self.model.cpu()
         model.reset_parameters(gen)
@@ -135,6 +163,7 @@ class SeggerTrainer:
                                             np.float32)))
         self.model = model.to(self.device)
         self.initialized = True
+        self._make_optimizer()
 
     def load_params(self, params) -> None:
         """Load a flax-layout parameter tree (nested dict of arrays, as
@@ -143,18 +172,41 @@ class SeggerTrainer:
         self.model.load_state_dict(params_from_flax(params), strict=True)
         self.model.to(self.device)
         self.initialized = True
+        if self.optimizer is None:
+            self._make_optimizer()
+
+    def _make_optimizer(self) -> None:
+        """``optax.adam(lr)`` as ``torch.optim.Adam``; with
+        ``update_gene_embedding=False`` the gene embedding is frozen (left
+        out, as ``optax.masked`` leaves it out)."""
+        params = []
+        for name, p in self.model.named_parameters():
+            frozen = (not self.cfg.update_gene_embedding
+                      and name.startswith("gene_embedding."))
+            p.requires_grad_(not frozen)
+            if not frozen:
+                params.append(p)
+        self.optimizer = torch.optim.Adam(
+            params, lr=self.cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8)
 
     # ------------------------------------------------------------------
     def _batch_plans(
         self, tiles: Sequence[TileSpec], use_xlo: bool = False,
+        shuffle: bool = False, rng: Optional[np.random.Generator] = None,
     ) -> List[Tuple[List[TileSpec], BucketShape]]:
-        """Bin-pack tile specs (best-fit decreasing on edge counts) into
-        batch plans: spec lists plus merged bucket shapes.  ``use_xlo``
-        keeps the extra-low degree segment, which prediction uses."""
+        """Bin-pack tile specs into batch plans: spec lists plus merged
+        bucket shapes.  Training shuffles (bucketed first-fit decreasing
+        from ``rng``), prediction does not (best-fit decreasing).
+        ``use_xlo`` keeps the extra-low degree segment, which prediction
+        uses and training does not."""
         if not tiles:
             return []
         values = np.array([max(t.n_edges, 1) for t in tiles])
-        bins = best_fit_decreasing(values, self.cfg.edges_per_batch)
+        if shuffle:
+            bins = first_fit_decreasing_bucketed(
+                values, self.cfg.edges_per_batch, rng=rng)
+        else:
+            bins = best_fit_decreasing(values, self.cfg.edges_per_batch)
         all_shapes = [tile_bucket(self.graph, s) for s in tiles]
         per_bin = []
         for bin_idx in bins:
@@ -172,11 +224,42 @@ class SeggerTrainer:
             for s in range(0, len(specs), m)
         ]
 
-    def _build_batch(self, plan) -> TileGraph:
+    def _extract_cached(self, spec: TileSpec, bucket: BucketShape,
+                        cache: bool = True) -> TileGraph:
+        """``extract_tile`` through the epoch-spanning cache, keyed by
+        (spec identity, bucket shape).  ``cache=False`` reads hits but
+        inserts nothing (tiles that nothing will read again)."""
+        if self.cfg.tile_cache_gb <= 0:
+            return extract_tile(self.graph, spec, bucket)
+        key = (id(spec), dataclasses.astuple(bucket))
+        hit = self._tile_cache.get(key)
+        if hit is not None:
+            return hit[1]
+        tile = extract_tile(self.graph, spec, bucket)
+        if not cache:
+            return tile
+        nbytes = 0
+        for f in dataclasses.fields(tile):
+            v = getattr(tile, f.name)
+            arrays = (v.idx, v.mask) if isinstance(v, PaddedCSR) else (v,)
+            nbytes += sum(a.nbytes for a in arrays if hasattr(a, "nbytes"))
+        if self._tile_cache_bytes + nbytes <= self.cfg.tile_cache_gb * 1e9:
+            # the spec rides in the value to pin its id() for the key
+            self._tile_cache[key] = (spec, tile)
+            self._tile_cache_bytes += nbytes
+        return tile
+
+    def release_tile_cache(self) -> None:
+        """Drop the epoch-spanning tile-extraction cache: its only value
+        is across fit epochs."""
+        self._tile_cache = {}
+        self._tile_cache_bytes = 0
+
+    def _build_batch(self, plan, cache: bool = True) -> TileGraph:
         """Extract and stack one plan's tiles, rounded up to
         ``tiles_per_step`` with empty tiles."""
         specs, bucket = plan
-        tgs = [extract_tile(self.graph, s, bucket) for s in specs]
+        tgs = [self._extract_cached(s, bucket, cache) for s in specs]
         while len(tgs) % self.cfg.tiles_per_step:
             tgs.append(empty_tile(
                 bucket, self.graph.bd_x.shape[1],
@@ -185,6 +268,149 @@ class SeggerTrainer:
             ))
         return stack_tiles(tgs)
 
+    # ------------------------------------------------------------------
+    def split_tiles(self, fit_tiles: Sequence[TileSpec]
+                    ) -> Tuple[List[TileSpec], List[TileSpec]]:
+        """The seeded train/val split of the fit tiles (the JAX
+        package's: a permutation from ``default_rng(cfg.seed)``)."""
+        rng = np.random.default_rng(self.cfg.seed)
+        n = len(fit_tiles)
+        perm = rng.permutation(n)
+        split = int(self.cfg.training_fraction * n)
+        train = [fit_tiles[i] for i in perm[:split]]
+        val = [fit_tiles[i] for i in perm[split:]]
+        return (train or list(fit_tiles)), val
+
+    def epoch_streams(self, epoch: int
+                      ) -> Tuple[np.random.Generator, torch.Generator]:
+        """The epoch's packing rng (``default_rng([seed, epoch])``, as the
+        JAX package) and its torch generator of dropout seeds and loss
+        draws, derived from ``(seed + 1, epoch)``; a resumed run draws
+        what an uninterrupted one would."""
+        state = np.random.SeedSequence(
+            [self.cfg.seed + 1, epoch]).generate_state(1, np.uint64)[0]
+        gen = torch.Generator().manual_seed(int(state))
+        return np.random.default_rng([self.cfg.seed, epoch]), gen
+
+    def weights(self, epoch: int, max_epochs: int) -> np.ndarray:
+        cfg = self.cfg
+        return L.cosine_weight_schedule(
+            epoch, max_epochs,
+            np.array([cfg.tx_weight_start, cfg.bd_weight_start,
+                      cfg.sg_weight_start]),
+            np.array([cfg.tx_weight_end, cfg.bd_weight_end,
+                      cfg.sg_weight_end]),
+        )
+
+    def _loss(self, batch: TileGraph, gen: torch.Generator,
+              weights: np.ndarray, deterministic: bool):
+        """The step loss over a device batch and its three parts: each
+        tile draws its dropout seeds (forward) and its loss randoms from
+        ``gen``, and the per-tile ``(sum, count)`` statistics are summed
+        before the masked means, as the JAX package's joint means."""
+        seeds = torch_seed_source(gen)
+        stats = []
+        for b in range(batch.tx_gene.shape[0]):
+            tile = batch.map_arrays(lambda a: a[b])
+            emb = self.model(tile, deterministic=deterministic, seeds=seeds)
+            stats.append(L.loss_stats(
+                L.draw_loss_randoms(tile, gen), emb, tile,
+                self.tx_similarity, self.bd_similarity,
+                tx_margin=self.cfg.tx_margin, sg_margin=self.cfg.sg_margin,
+                sg_loss_type=self.cfg.sg_loss_type, use_interior=True,
+            ))
+        tot = torch.stack(stats).sum(dim=0)
+        parts = tot[0::2] / tot[1::2].clamp(min=1.0)
+        w = torch.from_numpy(weights).to(parts.device)
+        loss = w[0] * parts[0] + w[1] * parts[1] + w[2] * parts[2]
+        return loss, parts
+
+    def train_step(self, batch: TileGraph, gen: torch.Generator,
+                   weights: np.ndarray) -> List[float]:
+        """One optimizer step on a device batch with dropout on; returns
+        ``[loss, loss_tx, loss_bd, loss_sg]``."""
+        loss, parts = self._loss(batch, gen, weights, deterministic=False)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer.step()
+        return torch.cat([loss[None], parts]).tolist()
+
+    def eval_step(self, batch: TileGraph, gen: torch.Generator,
+                  weights: np.ndarray) -> List[float]:
+        """The validation loss of a device batch (no dropout, no grad)."""
+        with torch.no_grad():
+            loss, parts = self._loss(batch, gen, weights, deterministic=True)
+        return torch.cat([loss[None], parts]).tolist()
+
+    def fit(
+        self,
+        fit_tiles: Sequence[TileSpec],
+        max_epochs: Optional[int] = None,
+        on_epoch_end: Optional[Callable] = None,
+    ) -> List[Dict]:
+        """Train/val loop over margin tiles (``make_fit_tiles``).
+
+        Per epoch: shuffled bucketed packing without the extra-low degree
+        segment, the cosine loss weights, one Adam step per batch with
+        dropout on, then a deterministic validation pass; one history
+        record per epoch with the JAX package's keys.
+        ``on_epoch_end(epoch, trainer)`` runs after each record.  With
+        ``checkpoint_dir``, ``latest.npz`` is resumed from at the epoch
+        after its own and written every ``checkpoint_every`` epochs."""
+        cfg = self.cfg
+        max_epochs = cfg.max_epochs if max_epochs is None else max_epochs
+        train_tiles, val_tiles = self.split_tiles(fit_tiles)
+        val_plans = self._batch_plans(val_tiles)
+        if not self.initialized:
+            self.init()
+        start_epoch = 0
+        latest = Path(cfg.checkpoint_dir) / "latest.npz" \
+            if cfg.checkpoint_dir else None
+        if latest is not None and latest.exists():
+            params, meta = load_checkpoint(latest, self.model,
+                                           self.optimizer)
+            self.model.load_state_dict(params_from_flax(params), strict=True)
+            start_epoch = int(meta.get("extra", {}).get("epoch", -1)) + 1
+            logger.info("resumed from epoch %d", start_epoch)
+
+        for epoch in range(start_epoch, max_epochs):
+            weights = self.weights(epoch, max_epochs)
+            erng, gen = self.epoch_streams(epoch)
+            # the cache pays only across epochs: the last inserts nothing
+            cache = epoch < max_epochs - 1
+            plans = self._batch_plans(train_tiles, shuffle=True, rng=erng)
+            ep_loss = []
+            with PrefetchIterator(
+                    plans, lambda p: self._build_batch(p, cache)) as batches:
+                for batch in batches:
+                    t0 = time.perf_counter()
+                    rec = self.train_step(batch.to(self.device), gen,
+                                          weights)
+                    self.step_log.append(
+                        (epoch, rec, time.perf_counter() - t0))
+                    ep_loss.append(rec)
+            rec = {"epoch": epoch}
+            rec.update(_means("train", ep_loss))
+            if val_plans:
+                vl = []
+                with PrefetchIterator(
+                        val_plans,
+                        lambda p: self._build_batch(p, cache)) as batches:
+                    for batch in batches:
+                        vl.append(self.eval_step(batch.to(self.device), gen,
+                                                 weights))
+                rec.update(_means("val", vl))
+            logger.info("epoch %d: %s", epoch, rec)
+            self.history.append(rec)
+            if on_epoch_end is not None:
+                on_epoch_end(epoch, self)
+            if latest is not None and cfg.checkpoint_every \
+                    and (epoch + 1) % cfg.checkpoint_every == 0:
+                save_checkpoint(latest, self.model, self.optimizer,
+                                config=cfg, extra={"epoch": epoch})
+        return self.history
+
+    # ------------------------------------------------------------------
     def _predict_tile(self, tile: TileGraph):
         emb = self.model(tile)
         max_sim, seg = score_candidates(
@@ -199,9 +425,11 @@ class SeggerTrainer:
         similarity, gene) NumPy arrays of its interior transcripts."""
         if not self.initialized:
             raise RuntimeError("call init() or load_params() first")
+        self.release_tile_cache()
         plans = self._batch_plans(predict_tiles, use_xlo=True)
         with torch.no_grad(), PrefetchIterator(
-                plans, self._build_batch) as batches:
+                plans, lambda p: self._build_batch(p, cache=False)
+        ) as batches:
             for batch in batches:
                 dev = batch.to(self.device)
                 n_tiles = dev.tx_gene.shape[0]
@@ -259,3 +487,10 @@ class SeggerTrainer:
             best_sim[rk[upd]] = sk[upd]
             best_enc[rk[upd]] = ek[upd]
         return best_sim, best_enc
+
+
+def _means(prefix: str, rows: List[List[float]]) -> Dict[str, float]:
+    """Epoch means of ``[loss, loss_tx, loss_bd, loss_sg]`` rows."""
+    keys = ("loss", "loss_tx", "loss_bd", "loss_sg")
+    return {f"{prefix}:{k}": float(np.mean([r[i] for r in rows]))
+            for i, k in enumerate(keys)}

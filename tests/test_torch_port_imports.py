@@ -1,6 +1,6 @@
 """The port stands alone: ``segger_tpu_torch`` and ``chip_smoke.py``
-import neither JAX nor the JAX package, and a small prediction runs with
-both blocked."""
+import neither JAX nor the JAX package, and a small fit and prediction
+run with both blocked."""
 import ast
 import subprocess
 import sys
@@ -21,7 +21,7 @@ _SCRIPT = textwrap.dedent("""
     import segger_tpu_torch
     import chip_smoke
     from segger_tpu_torch.data.partition import (
-        build_tiling, make_predict_tiles)
+        build_tiling, make_fit_tiles, make_predict_tiles)
     from segger_tpu_torch.train.trainer import SeggerTrainer, TrainConfig
 
     g = chip_smoke.synthetic_slide(n_tx=3000, n_cells=150, n_genes=30,
@@ -31,6 +31,9 @@ _SCRIPT = textwrap.dedent("""
     tr = SeggerTrainer(g, TrainConfig(hidden_channels=16, out_channels=16,
                                       n_mid_layers=0), device="cpu")
     tr.init()
+    hist = tr.fit(make_fit_tiles(g, build_tiling(g, nodes_per_tile=900),
+                                 margin=20.0), max_epochs=1)
+    assert np.isfinite(hist[0]["train:loss"])
     out = tr.predict(specs)
     assert len(specs) > 1
     assert np.array_equal(np.sort(out["row_index"]), np.arange(3000))

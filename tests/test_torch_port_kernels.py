@@ -8,7 +8,8 @@ import pytest
 import torch
 
 from segger_tpu_torch.ops.postgather import (
-    edge_stage_fwd, edge_stage_fwd_reference,
+    edge_stage_bwd, edge_stage_bwd_reference, edge_stage_fwd,
+    edge_stage_fwd_reference, prng_keep_reference,
 )
 from segger_tpu_torch.ops.score import score_max, score_max_reference
 
@@ -86,14 +87,23 @@ def test_launch_counters_count_kernel_launches_only(cuda):
     x = torch.randn(50, 64, generator=gen)
     idx, mask = _table(50, 4, 50, gen, "cpu")
     att = torch.randn(2, 32, generator=gen)
-    e0, s0 = edge_stage_fwd.launches, score_max.launches
-    edge_stage_fwd(x, x, att, idx, mask, 2)            # CPU: plain version
+    e0 = dict(edge_stage_fwd.launches)
+    b0 = dict(edge_stage_bwd.launches)
+    s0 = score_max.launches
+    _, alpha = edge_stage_fwd(x, x, att, idx, mask, 2)  # CPU: plain version
+    edge_stage_bwd(x, x, att, idx, mask, alpha, x, 2)
     score_max(x, x, idx, mask)
-    assert (edge_stage_fwd.launches, score_max.launches) == (e0, s0)
+    assert (edge_stage_fwd.launches, edge_stage_bwd.launches,
+            score_max.launches) == (e0, b0, s0)
     xc, ic, mc = x.to(cuda), idx.to(cuda), mask.to(cuda)
-    edge_stage_fwd(xc, xc, att.to(cuda), ic, mc, 2)
+    _, ac = edge_stage_fwd(xc, xc, att.to(cuda), ic, mc, 2, seed=(1, 2),
+                           rate=0.2)
+    edge_stage_bwd(xc, xc, att.to(cuda), ic, mc, ac, xc, 2, seed=(1, 2),
+                   rate=0.2)
     score_max(xc, xc, ic, mc)
-    assert (edge_stage_fwd.launches, score_max.launches) == (e0 + 1, s0 + 1)
+    assert edge_stage_fwd.launches == dict(e0, prng=e0["prng"] + 1)
+    assert edge_stage_bwd.launches == dict(b0, prng=b0["prng"] + 1)
+    assert score_max.launches == s0 + 1
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda):
@@ -105,3 +115,127 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
                        mask.cpu(), 2)
     with pytest.raises(TypeError):
         score_max(x.half(), x.half(), idx, mask)
+
+
+# ---------------------------------------------------------------------
+# dropout forward (K2, K4) and backward (K3, K4)
+# ---------------------------------------------------------------------
+SHAPES = [(128, 2), (48, 3), (512, 8)]
+
+
+def _features(n, n_src, hc, heads, dtype, gen, cuda):
+    xl = torch.randn(n_src, hc, generator=gen).to(dtype).to(cuda)
+    xr = torch.randn(n, hc, generator=gen).to(dtype).to(cuda)
+    att = torch.randn(heads, hc // heads, generator=gen).to(dtype).to(cuda)
+    return xl, xr, att
+
+
+def _dropout(mode, rate, n, k, heads, gen, cuda):
+    if mode == "prng":
+        w = torch.randint(0, 2**32, (2,), generator=gen, dtype=torch.int64)
+        return dict(seed=(int(w[0]), int(w[1])), rate=rate)
+    if mode == "keep":
+        keep = (torch.rand(n, k, heads, generator=gen) < 0.8) / 0.8
+        return dict(keep=keep.to(cuda))
+    return {}
+
+
+MODES = [("nokeep", 0.0), ("prng", 0.0), ("prng", 0.2), ("prng", 0.5),
+         ("keep", 0.0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hc,heads", SHAPES)
+@pytest.mark.parametrize("k", [1, 4, 13, 40])
+@pytest.mark.parametrize("mode,rate", MODES[1:])
+def test_dropout_forward_kernel_matches_reference(cuda, mode, rate, k, hc,
+                                                  heads, dtype):
+    gen = torch.Generator().manual_seed(k * 7 + hc)
+    n, n_src = 700, 500
+    xl, xr, att = _features(n, n_src, hc, heads, dtype, gen, cuda)
+    idx, mask = _table(n, k, n_src, gen, cuda)
+    kw = _dropout(mode, rate, n, k, heads, gen, cuda)
+    out, alpha = edge_stage_fwd(xl, xr, att, idx, mask, heads, **kw)
+    ref_out, ref_alpha = edge_stage_fwd_reference(xl, xr, att, idx, mask,
+                                                  heads, **kw)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(alpha, ref_alpha, atol=1e-5, rtol=0)
+    assert (out[:5] == 0).all() and (alpha[:5] == 0).all()
+
+
+@pytest.mark.parametrize("rate", [0.2, 0.5])
+def test_prng_keep_stream_equals_reference(cuda, rate):
+    """One valid slot per row and all source rows ones: out is the keep
+    multiplier itself, which must equal the plain hash bit for bit."""
+    n, k, heads, ch = 4000, 13, 2, 64
+    slot = torch.arange(n) % k
+    idx = torch.zeros(n, k, dtype=torch.int32)
+    mask = torch.zeros(n, k, dtype=torch.bool)
+    mask[torch.arange(n), slot] = True
+    xl = torch.ones(10, heads * ch, device=cuda)
+    xr = torch.randn(n, heads * ch, device=cuda)
+    att = torch.randn(heads, ch, device=cuda)
+    seed = (0xDEADBEEF, 12345)
+    out, _ = edge_stage_fwd(xl, xr, att, idx.to(cuda), mask.to(cuda), heads,
+                            seed=seed, rate=rate)
+    want = prng_keep_reference(seed, n, k, heads, rate)[torch.arange(n),
+                                                         slot]
+    got = out.cpu().view(n, heads, ch)[..., 0]
+    assert torch.equal(got, want)
+    assert abs((got == 0).float().mean().item() - rate) < 0.02
+
+
+def _bwd_tol(dtype):
+    return (dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32
+            else dict(atol=2e-2, rtol=2e-2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hc,heads", SHAPES)
+@pytest.mark.parametrize("k", [1, 4, 13, 40])
+@pytest.mark.parametrize("mode,rate", MODES)
+def test_backward_kernel_matches_reference(cuda, mode, rate, k, hc, heads,
+                                           dtype):
+    gen = torch.Generator().manual_seed(k * 11 + hc)
+    n, n_src = 700, 500
+    xl, xr, att = _features(n, n_src, hc, heads, dtype, gen, cuda)
+    idx, mask = _table(n, k, n_src, gen, cuda)
+    kw = _dropout(mode, rate, n, k, heads, gen, cuda)
+    _, alpha = edge_stage_fwd_reference(xl, xr, att, idx, mask, heads, **kw)
+    go = torch.randn(n, hc, generator=gen).to(dtype).to(cuda)
+    got = edge_stage_bwd(xl, xr, att, idx, mask, alpha, go, heads, **kw)
+    want = edge_stage_bwd_reference(xl, xr, att, idx, mask, alpha, go,
+                                    heads, **kw)
+    torch.cuda.synchronize()
+    tol = _bwd_tol(dtype)
+    torch.testing.assert_close(got[0].float(), want[0].float(), **tol)
+    # dxr sums the K slots of a row, datt every slot of every row, in
+    # another order than the plain version: each against its own scale
+    for a, b in zip(got[1:3], want[1:3]):
+        scale = b.float().abs().max().item() + 1e-9
+        torch.testing.assert_close(
+            a.float() / scale, b.float() / scale, rtol=0,
+            atol=1e-5 if dtype == torch.float32 else 1e-2)
+    if mode == "keep":
+        torch.testing.assert_close(got[3].float(), want[3].float(), **tol)
+    else:
+        assert got[3] is None
+    assert (got[0][~mask] == 0).all() and (got[1][:5] == 0).all()
+
+
+@pytest.mark.parametrize("mode,rate", [("nokeep", 0.0), ("prng", 0.2)])
+def test_backward_kernel_repeats_bit_for_bit(cuda, mode, rate):
+    gen = torch.Generator().manual_seed(3)
+    n, n_src, k, hc, heads = 30_000, 20_000, 12, 128, 2
+    xl, xr, att = _features(n, n_src, hc, heads, torch.bfloat16, gen, cuda)
+    idx, mask = _table(n, k, n_src, gen, cuda)
+    kw = _dropout(mode, rate, n, k, heads, gen, cuda)
+    _, alpha = edge_stage_fwd(xl, xr, att, idx, mask, heads, **kw)
+    go = torch.randn(n, hc, generator=gen).to(torch.bfloat16).to(cuda)
+    a = edge_stage_bwd(xl, xr, att, idx, mask, alpha, go, heads, **kw)
+    b = edge_stage_bwd(xl, xr, att, idx, mask, alpha, go, heads, **kw)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.equal(a[2], b[2])

@@ -279,3 +279,176 @@ def test_embed_lookup_wraps_negative_ids_like_jax():
     np.testing.assert_array_equal(
         embed_lookup(_t(table), _t(ids)).numpy(),
         np.asarray(jembed(_j(table), _j(ids))))
+
+
+# ---------------------------------------------------------------------
+# edge stage with dropout (K2, K4 forward) and backward (K3, K4)
+# ---------------------------------------------------------------------
+from segger_tpu_torch.ops import postgather as tpg  # noqa: E402
+
+
+def _seed_words(key):
+    """JAX's seed operand and the same two words as ints."""
+    seed = jpg.prng_dropout_seed(jax.random.PRNGKey(key))
+    return seed, tuple(int(w) for w in np.asarray(seed).view(np.uint32))
+
+
+@pytest.mark.parametrize("rate", [0.2, 0.5])
+def test_prng_keep_stream_bit_equal_to_pallas(rate):
+    """Every row has one valid slot, at a varying position, and all
+    source rows are ones: alpha = 1 and out = keep, so the recovered
+    keep patterns of the two kernels must be equal."""
+    n, k, heads, ch = 300, 7, 3, 4
+    hc = heads * ch
+    slot = np.arange(n) % k
+    idx = np.zeros((n, k), np.int32)
+    idx[np.arange(n), slot] = np.arange(n) % 50
+    mask = np.zeros((n, k), bool)
+    mask[np.arange(n), slot] = True
+    csr = jcsr.PaddedCSR(idx=idx, mask=mask)
+    csr_t = jcsr.transpose_csr(csr, n_src=50)
+    rng = np.random.default_rng(1)
+    xl = np.ones((50, hc), np.float32)
+    xr = rng.normal(size=(n, hc)).astype(np.float32)
+    att = rng.normal(size=(heads, ch)).astype(np.float32)
+    seed, words = _seed_words(11)
+    out_j = np.asarray(jpg.gatv2_edge_stage_pallas(
+        _j(xl), _j(xr), _j(att), seed, jax.tree.map(jnp.asarray, csr),
+        jax.tree.map(jnp.asarray, csr_t), (heads, 0.2, True, rate)))
+    out_t, alpha_t = edge_stage_fwd(_t(xl), _t(xr), _t(att), _t(idx),
+                                    _t(mask), heads, seed=words, rate=rate)
+    np.testing.assert_array_equal(alpha_t.numpy()[mask], 1.0)
+    keep_j = out_j.reshape(n, heads, ch)[..., 0]
+    keep_t = out_t.numpy().reshape(n, heads, ch)[..., 0]
+    np.testing.assert_array_equal(keep_t, keep_j)
+    want = tpg.prng_keep_reference(words, n, k, heads, rate).numpy()
+    np.testing.assert_array_equal(keep_t, want[np.arange(n), slot])
+    dropped = (keep_t == 0).mean()
+    assert abs(dropped - rate) < 0.08, dropped
+
+
+def test_prng_hash_matches_jax_mix32_past_int32_wrap():
+    pos = np.arange(2**31 - 300, 2**31 + 300, dtype=np.int64)
+    pos32 = pos.astype(np.uint32).view(np.int32)
+    seed, words = _seed_words(5)
+    s = jax.lax.bitcast_convert_type(seed, jnp.int32)
+    x = jpg._mix32(jnp.asarray(pos32) ^ s[0])
+    x = jpg._mix32(x ^ (s[1] + jnp.int32(-1640531527)))
+    want = np.asarray(x).view(np.uint32).astype(np.int64)
+    got = tpg.prng_hash(torch.from_numpy(pos), words).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def _keep_case(mode, n, k, heads, seed_key=3, rate=0.3):
+    """JAX keep operand, its config and the port's keyword arguments."""
+    if mode == "nokeep":
+        return jpg.no_dropout_keep(heads), (heads, 0.2, True), {}
+    if mode == "prng":
+        seed, words = _seed_words(seed_key)
+        return seed, (heads, 0.2, True, rate), dict(seed=words, rate=rate)
+    keep = ((np.random.default_rng(seed_key).uniform(size=(n, k, heads))
+             < 0.7) / 0.7).astype(np.float32)
+    return _j(keep), (heads, 0.2, True), dict(keep=_t(keep))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["prng", "keep"])
+def test_dropout_forward_matches_pallas(mode, dtype):
+    csr, xl, xr, att, heads = _edge_case(8, seed=21)
+    jdt, tdt = _DT[dtype]
+    km, cfg, kw = _keep_case(mode, *csr.idx.shape, heads)
+    csr_t = jcsr.transpose_csr(csr, n_src=xl.shape[0])
+    out_j, res = jpg._fwd_rule(
+        _j(xl, jdt), _j(xr, jdt), _j(att, jdt), km,
+        jax.tree.map(jnp.asarray, csr), jax.tree.map(jnp.asarray, csr_t), cfg)
+    alpha_j = np.asarray(res[1])[: xr.shape[0]]
+    out_t, alpha_t = edge_stage_fwd(
+        _t(xl, tdt), _t(xr, tdt), _t(att, tdt), _t(csr.idx), _t(csr.mask),
+        heads, **kw)
+    atol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(out_t.float().numpy(),
+                               np.asarray(out_j.astype(jnp.float32)),
+                               atol=atol)
+    np.testing.assert_allclose(alpha_t.numpy(), alpha_j, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["nokeep", "prng", "keep"])
+def test_edge_stage_backward_matches_pallas_vjp(mode, dtype):
+    """dxl, dxr, datt (and dkeep) of the autograd function against
+    ``jax.vjp`` of the Pallas op, on a bucket segment with its
+    transpose table, each scaled by its largest value."""
+    csr, xl, xr, att, heads = _edge_case(13, seed=17, n=150, n_src=120)
+    jdt, tdt = _DT[dtype]
+    n, k = csr.idx.shape
+    km, cfg, kw = _keep_case(mode, n, k, heads)
+    csr_t = jcsr.transpose_csr(csr, n_src=xl.shape[0])
+    go = np.random.default_rng(2).normal(size=xr.shape).astype(np.float32)
+    jc, jct = (jax.tree.map(jnp.asarray, c) for c in (csr, csr_t))
+    args = [_j(xl, jdt), _j(xr, jdt), _j(att, jdt)]
+    if mode == "keep":
+        args.append(km.astype(jdt))
+
+    def f(*a):
+        keep = a[3] if mode == "keep" else km
+        return jpg.gatv2_edge_stage_pallas(a[0], a[1], a[2], keep, jc, jct,
+                                           cfg)
+
+    _, vjp = jax.vjp(f, *args)
+    want = vjp(_j(go, jdt))
+    xs = [_t(a, tdt).requires_grad_() for a in (xl, xr, att)]
+    if mode == "keep":
+        kw["keep"] = kw["keep"].to(tdt).requires_grad_()
+    out = tpg.gatv2_edge_stage(
+        *xs, _t(csr.idx), _t(csr.mask), heads, csr_t=port_csr(csr_t).to(
+            "cpu"), **kw)
+    out.backward(_t(go, tdt))
+    got = [x.grad for x in xs] + ([kw["keep"].grad] if mode == "keep"
+                                  else [])
+    atol = 3e-5 if dtype == "float32" else 3e-2
+    for name, a, b in zip(("dxl", "dxr", "datt", "dkeep"), want, got):
+        a = np.asarray(a.astype(jnp.float32))
+        scale = float(np.abs(a).max()) + 1e-9
+        np.testing.assert_allclose(b.float().numpy() / scale, a / scale,
+                                   atol=atol, err_msg=name)
+
+
+def test_edge_stage_bwd_reference_zero_on_masked_slots():
+    csr, xl, xr, att, heads = _edge_case(6, seed=4)
+    args = (_t(xl), _t(xr), _t(att), _t(csr.idx), _t(csr.mask))
+    _, alpha = edge_stage_fwd(*args, heads)
+    go = torch.randn(xr.shape, generator=torch.Generator().manual_seed(0))
+    dg, dxr, _, dkeep = tpg.edge_stage_bwd(*args, alpha, go, heads)
+    assert dkeep is None
+    assert (dg[~_t(csr.mask)] == 0).all()
+    empty = ~csr.mask.any(1)
+    assert (dxr[_t(empty)] == 0).all()
+
+
+def test_transpose_gather_matches_index_add():
+    csr, xl, *_ = _edge_case(5, seed=8)
+    n, k = csr.idx.shape
+    dg = torch.randn(n, k, 16, generator=torch.Generator().manual_seed(1))
+    dg[~_t(csr.mask)] = 0
+    csr_t = jcsr.transpose_csr(csr, n_src=xl.shape[0])
+    got = tpg.transpose_gather(dg, xl.shape[0], _t(csr_t.idx),
+                               _t(csr_t.mask))
+    m = _t(csr.mask)
+    want = torch.zeros(xl.shape[0], 16).index_add_(
+        0, _t(csr.idx).long()[m], dg[m])
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    with pytest.raises(ValueError, match="transpose"):
+        tpg.transpose_gather(dg, xl.shape[0], None, None)
+
+
+def test_embed_lookup_backward_matches_jax():
+    from segger_tpu.ops.embed import embed_lookup as jembed
+
+    table = np.arange(12, dtype=np.float32).reshape(4, 3)
+    ids = np.array([0, 3, -1, 2, 3], np.int32)
+    cot = np.random.default_rng(0).normal(size=(5, 3)).astype(np.float32)
+    _, vjp = jax.vjp(lambda t: jembed(t, _j(ids)), _j(table))
+    want = np.asarray(vjp(_j(cot))[0])
+    t = _t(table).requires_grad_()
+    embed_lookup(t, _t(ids)).backward(_t(cot))
+    np.testing.assert_allclose(t.grad.numpy(), want, atol=1e-6)
