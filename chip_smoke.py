@@ -17,8 +17,10 @@ Phases (any failure exits non-zero; nothing is caught):
    (CUDA events), beside the least time the card could take for the same
    work: K1 (edge-stage forward), K2 (its hashed-dropout mode), K3 (the
    edge-stage backward, no-dropout and hashed-dropout modes, run twice
-   to show it repeats bit for bit), K4 (the keep-tensor mode of both) and
-   K5 (candidate scoring);
+   to show it repeats bit for bit), K4 (the keep-tensor mode of both),
+   K5 (candidate scoring), K6 (the fused attention, at N = 50,000 and
+   the tiles' widths) and K7 (the banded edge stage, on the slide-wide
+   strip-major tt table that ``band_graph`` bands);
 3. drive ``SeggerTrainer.predict`` at the full ``TrainConfig()`` width
    (bf16, 4 GATv2 layers, 64 x 2 heads) over a synthetic slide of 200k
    transcripts and 10k cells with random weights from a seed, counting
@@ -29,7 +31,13 @@ Phases (any failure exits non-zero; nothing is caught):
    step wall times and peak memory; then the edge-stage op in keep mode
    (K4's own path) forward and backward on a training tile;
 5. run the first 4 training steps again on the CPU (same init, same
-   generators, plain versions) and compare the per-step losses.
+   generators, plain versions) and compare the per-step losses;
+6. the forward-only path in float32: the first tt conv of the
+   initialized encoder on the slide's layer-0 features over the
+   slide-wide strip-major table, through K1 + bias, K6, K7 and the
+   unfused conv (which must agree, its attention summing to 1), with
+   launch counts; then the encoder's attention-capture forward on the
+   first predict tile against its fused forward and the CPU.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel JSON record, and the line before that the card's
@@ -38,6 +46,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -370,6 +379,92 @@ def check_score(idx, mask, n_bd, rng, f=64, dtype=None):
             "valid_slots": n_valid, "empty_rows": int((~mask.any(1)).sum())}
 
 
+def check_attention(idx, mask, xl, xr, att, bias, heads, lo=None):
+    """The fused attention kernel (K6; ``lo`` None) or the banded edge
+    stage (K7; ``lo`` the window starts, ``idx`` window-local) against
+    its plain version on one table; times both.  Returns the record and
+    the kernel's output."""
+    import torch
+
+    from segger_tpu_torch.ops.banded import (
+        BLOCK, banded_edge_stage, banded_edge_stage_reference,
+    )
+    from segger_tpu_torch.ops.gatv2_attn import (
+        gatv2_attention, gatv2_attention_reference,
+    )
+
+    if lo is None:
+        op, plain, src = gatv2_attention, gatv2_attention_reference, idx
+        args = (xl, xr, idx, mask, att, bias, heads)
+    else:
+        op, plain = banded_edge_stage, banded_edge_stage_reference
+        src = lo.long().repeat_interleave(BLOCK)[:, None] + idx
+        args = (xl, xr, lo, idx, mask, att, bias, heads)
+    name, dt = op.__name__, xl.dtype
+    n, k = idx.shape
+    launches = op.launches
+    out = op(*args)
+    if op.launches != launches + 1:
+        raise AssertionError(f"{name}: {op.launches - launches} launches")
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    # as K1: f32 one arithmetic, other summation order; bf16 an f32 sum
+    # may round to a neighbouring bf16 value of the output
+    tol = 1e-5 if dt == torch.float32 else 2e-2
+    err = (out.float() - ref.float()).abs()
+    if not (torch.isfinite(out.float()).all()
+            and (err <= tol + tol * ref.float().abs()).all()):
+        raise AssertionError(f"{name} K={k} {dt}: err {err.max().item()}")
+    empty = ~mask.any(1)
+    if not torch.equal(out[empty], bias.to(dt).expand(int(empty.sum()), -1)):
+        raise AssertionError(f"{name}: empty rows are not the bias")
+    ms = cuda_ms(lambda: op(*args), 50)
+    plain_ms = cuda_ms(lambda: plain(*args), 3)
+    op.launches = launches                 # the checks do not count
+    size, hc = xl.element_size(), xl.shape[1]
+    n_valid = int(mask.sum())
+    # idx, mask, the source rows the valid slots name, xr and out (+ lo)
+    n_bytes = _row_bytes(src, mask, hc, size) + 2 * n * hc * size
+    if lo is not None:
+        n_bytes += lo.numel() * 4
+    b_ms, b_by = bound_ms(n_bytes, n_valid * hc * 8)
+    return {"n": n, "k": k, "dtype": str(dt).split(".")[-1],
+            "max_abs_err": err.max().item(),
+            "tol": f"atol {tol} rtol {tol}, empty rows equal the bias",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "bytes": n_bytes, "valid_slots": n_valid,
+            "empty_rows": int(empty.sum())}, out
+
+
+def strip_major_table(graph):
+    """The slide-wide tt table as ``tools/banded_retest.py`` builds it:
+    the transcripts in strip-major order, kNN k=5 within 5 um (the
+    slide's own settings), padded to K = 8; then ``band_graph`` over it.
+    Returns the order, the table, the banded table, the widest block
+    span in rows and band_graph's host seconds."""
+    import numpy as np
+
+    from segger_tpu_torch.data.neighbors_host import kdtree_neighbors
+    from segger_tpu_torch.data.partition import _strip_major_order
+    from segger_tpu_torch.ops.banded import BLOCK, band_graph
+    from segger_tpu_torch.ops.padded_csr import coo_to_padded_csr
+
+    order = _strip_major_order(graph.tx_pos)
+    src, dst = kdtree_neighbors(graph.tx_pos[order], max_k=5, max_dist=5.0)
+    csr = coo_to_padded_csr(dst, src, n_dst=graph.n_tx, pad_to_multiple=8)
+    t0 = time.perf_counter()
+    lo, idxl, mask, ok = band_graph(csr, n_src=graph.n_tx)
+    band_s = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError("band_graph refused the strip-major slide")
+    blk_i = idxl.reshape(-1, BLOCK * idxl.shape[1])
+    blk_m = mask.reshape(blk_i.shape)
+    span = (np.where(blk_m, blk_i, -1).max(1)
+            - np.where(blk_m, blk_i, 1 << 30).min(1) + 1)
+    return order, csr, (lo, idxl, mask), int(span[blk_m.any(1)].max()), \
+        band_s
+
+
 def gpu_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -451,6 +546,8 @@ def profile_train_step(trainer, plan, path: Path):
 
 
 def reset_counts():
+    from segger_tpu_torch.ops.banded import banded_edge_stage
+    from segger_tpu_torch.ops.gatv2_attn import gatv2_attention
     from segger_tpu_torch.ops.postgather import (
         MODES, edge_stage_bwd, edge_stage_fwd,
     )
@@ -459,15 +556,21 @@ def reset_counts():
     edge_stage_fwd.launches = dict.fromkeys(MODES, 0)
     edge_stage_bwd.launches = dict.fromkeys(MODES, 0)
     score_max.launches = 0
+    gatv2_attention.launches = 0
+    banded_edge_stage.launches = 0
 
 
 def read_counts() -> dict:
+    from segger_tpu_torch.ops.banded import banded_edge_stage
+    from segger_tpu_torch.ops.gatv2_attn import gatv2_attention
     from segger_tpu_torch.ops.postgather import edge_stage_bwd, edge_stage_fwd
     from segger_tpu_torch.ops.score import score_max
 
     return {"fwd": dict(edge_stage_fwd.launches),
             "bwd": dict(edge_stage_bwd.launches),
-            "score": score_max.launches}
+            "score": score_max.launches,
+            "attn": gatv2_attention.launches,
+            "banded": banded_edge_stage.launches}
 
 
 def drive_keep_op(tile, heads, hc, dtype, rng):
@@ -511,12 +614,20 @@ def main(argv) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import numpy as np
+    import torch.nn.functional as F
 
     from segger_tpu_torch.data.partition import (
         build_tiling, make_fit_tiles, make_predict_tiles,
     )
     from segger_tpu_torch.models.encoder import tt_segments
+    from segger_tpu_torch.models.positional import dense
     from segger_tpu_torch.ops import _build
+    from segger_tpu_torch.ops.banded import (
+        BLOCK, WINDOW, band_graph, banded_edge_stage,
+    )
+    from segger_tpu_torch.ops.gatv2_attn import gatv2_attention
+    from segger_tpu_torch.ops.padded_csr import PaddedCSR
+    from segger_tpu_torch.ops.postgather import edge_stage_fwd
     from segger_tpu_torch.train.trainer import SeggerTrainer, TrainConfig
 
     card = gpu_line()
@@ -615,6 +726,27 @@ def main(argv) -> int:
             i, m, ttile.n_tx, bf16, rng, heads, hc, "keep")))
         checks.append(("K4", where, check_edge_stage_bwd(
             i, m, ttile.n_tx, bf16, rng, heads, hc, "keep")))
+    # (c) the fused attention (K6) at N = 50,000 at the real tiles'
+    # widths, and the banded edge stage (K7) on the slide-wide
+    # strip-major tt table, random features
+    for k in sorted({bucket.k_xlo, bucket.k_lo, bucket.k_tt, bucket.k_tb}):
+        idx, mask = random_table(N_BENCH, k, N_BENCH, rng)
+        for dt in (bf16, f32):
+            xl, xr, att = _features(idx, N_BENCH, dt, rng, heads, hc)[:3]
+            bias = torch.randn(hc, device="cuda")
+            checks.append(("K6", "N=50000", check_attention(
+                idx, mask, xl, xr, att, bias, heads)[0]))
+    order, slide_csr, banded, span, band_s = strip_major_table(graph)
+    lo, idxl, bmask = (torch.from_numpy(a).cuda() for a in banded)
+    n_pad = idxl.shape[0]
+    print(f"K7 band: {graph.n_tx} rows in {lo.numel()} blocks of "
+          f"{BLOCK}, widest block span {span} rows (window {WINDOW}), "
+          f"band_graph {band_s:.3f} s on the host")
+    xl, xr, att = _features(idxl, graph.n_tx, f32, rng, heads, hc)[:3]
+    checks.append(("K7", "N=200000 random", check_attention(
+        idxl, bmask, xl, xr, att, torch.randn(hc, device="cuda"), heads,
+        lo)[0]))
+    del xl, xr, att    # keep the later phases' peak memory their own
     for kernel, where, r in checks:
         print(f"{kernel} [{where}] " + json.dumps(r))
 
@@ -637,7 +769,8 @@ def main(argv) -> int:
           f"launches {predict_counts}")
     want = {"fwd": {"nokeep": n_tiles * n_layers * len(segs), "prng": 0,
                     "keep": 0},
-            "bwd": {"nokeep": 0, "prng": 0, "keep": 0}, "score": n_tiles}
+            "bwd": {"nokeep": 0, "prng": 0, "keep": 0}, "score": n_tiles,
+            "attn": 0, "banded": 0}
     if predict_counts != want:
         raise AssertionError(f"launches {predict_counts}, expected {want}")
     rows = np.sort(got["row_index"])
@@ -694,7 +827,7 @@ def main(argv) -> int:
     want = {"fwd": {"nokeep": n_val * per_val,
                     "prng": len(steps) * per_step, "keep": 0},
             "bwd": {"nokeep": 0, "prng": len(steps) * per_step, "keep": 0},
-            "score": 0}
+            "score": 0, "attn": 0, "banded": 0}
     if fit_counts != want:
         raise AssertionError(f"fit launches {fit_counts}, expected {want}")
     if len(steps) != TRAIN_EPOCHS * len(fit_plans) or not all(
@@ -739,6 +872,95 @@ def main(argv) -> int:
         profile_train_step(trainer, fit_plans[0],
                            ROOT / "chiprun_out" / "train_profile.txt")
 
+    # -- phase 6: the forward-only path.  The initialized encoder in f32,
+    # its first tt conv on the slide's layer-0 features over the
+    # slide-wide strip-major table: K1 + bias, K6, K7 and the unfused
+    # conv; then the encoder's capture forward on the first predict tile
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    gpu32 = SeggerTrainer(graph, cfg32)
+    gpu32.init()
+    enc = gpu32.model.eval()
+    conv = enc.conv_0.tt
+    table = slide_csr.to("cuda")
+    n = graph.n_tx
+    tile32 = gpu32._build_batch(plans[0], cache=False).to(
+        "cuda").map_arrays(lambda a: a[0])
+    reset_counts()
+    with torch.no_grad():
+        x0 = F.gelu(torch.cat([
+            enc.gene_embedding(torch.from_numpy(graph.tx_gene[order]).cuda()),
+            enc.pos_emb(torch.from_numpy(graph.tx_pos[order]).cuda(),
+                        torch.ones(n, dtype=torch.bool, device="cuda"))],
+            dim=-1))
+        xl, xr = dense(conv.lin_l, x0), dense(conv.lin_r, x0)
+        att, bias = conv.att[0], conv.bias
+        k1 = edge_stage_fwd(xl, xr, att, table.idx, table.mask,
+                            heads)[0] + bias
+        k6 = gatv2_attention(xl, xr, table.idx, table.mask, att, bias, heads)
+        xr_pad = torch.cat([xr, xr.new_zeros(n_pad - n, hc)])
+        k7 = banded_edge_stage(xl, xr_pad, lo, idxl, bmask, att, bias,
+                               heads)[:n]
+        inter = {}
+        unfused = conv(x0, x0, table, intermediates=inter)
+        fused_emb = enc(tile32)
+        cap_inter = {}
+        cap_emb = enc(tile32, capture_attention=True,
+                      intermediates=cap_inter)
+    torch.cuda.synchronize()
+    fwd_counts = read_counts()
+    want = {"fwd": {"nokeep": 1 + n_layers * len(segs), "prng": 0,
+                    "keep": 0},
+            "bwd": {"nokeep": 0, "prng": 0, "keep": 0}, "score": 0,
+            "attn": 1, "banded": 1}
+    print(f"forward-only path: launches {fwd_counts}")
+    if fwd_counts != want:
+        raise AssertionError(f"forward-only launches {fwd_counts}, "
+                             f"expected {want}")
+    errs = {}
+    for name, a in (("K6", k6), ("K7", k7), ("unfused", unfused)):
+        err = (a - k1).abs()
+        errs[name] = err.max().item()
+        if not (err <= 1e-5 + 1e-5 * k1.abs()).all():
+            raise AssertionError(f"forward-only path: {name} differs from "
+                                 f"K1 + bias by {errs[name]}")
+    alpha = inter["attention"]
+    valid = table.mask.any(1)
+    sum_err = (alpha[valid].sum(1) - 1).abs().max().item()
+    if sum_err > 1e-5 or (alpha[~valid] != 0).any():
+        raise AssertionError(f"unfused attention sums off 1 by {sum_err}")
+    cpu32 = SeggerTrainer(graph, cfg32, device="cpu")
+    cpu32.init()
+    with torch.no_grad():
+        cpu_emb = cpu32.model.eval()(
+            cpu32._build_batch(plans[0], cache=False).to("cpu").map_arrays(
+                lambda a: a[0]), capture_attention=True)
+    emb_err = {key: ((cap_emb[key] - fused_emb[key]).abs().max().item(),
+                     (cap_emb[key].cpu() - cpu_emb[key]).abs().max().item())
+               for key in ("tx", "bd")}
+    n_att = sum(key.endswith("/attention") for key in cap_inter)
+    tile_band = band_graph(PaddedCSR(tile32.tt.idx.cpu().numpy(),
+                                     tile32.tt.mask.cpu().numpy()),
+                           n_src=tile32.n_tx)[3]
+    print(f"forward-only path: {n} rows, K={table.idx.shape[1]}, max abs "
+          f"diff to K1 + bias {errs} (need <= 1e-5 + 1e-5 |x|); unfused "
+          f"attention sums to 1 within {sum_err:.3e}.  Capture forward on "
+          f"the first predict tile ({tile32.n_tx} tx, {n_att} attentions): "
+          f"max abs diff (to the fused forward, to the CPU capture) "
+          f"{emb_err} (need <= 1e-5, 1e-4); band_graph accepts the tile's "
+          f"degree-bucketed tt table (K={tile32.tt.idx.shape[1]}): "
+          f"{tile_band}")
+    if n_att != 2 * n_layers or any(
+            a > 1e-5 or b > 1e-4 for a, b in emb_err.values()):
+        raise AssertionError("capture forward disagrees")
+    # the kernels at the forward-only path's inputs, against their plain
+    # versions, timed
+    checks.append(("K6", "slide", check_attention(
+        table.idx, table.mask, xl, xr, att, bias, heads)[0]))
+    checks.append(("K7", "slide", check_attention(
+        idxl, bmask, xl, xr_pad, att, bias, heads, lo)[0]))
+    for kernel, where, r in checks[-2:]:
+        print(f"{kernel} [{where}] " + json.dumps(r))
+
     def summary(kernel, tile_prefix, modes=None):
         rs = [r for k, w, r in checks if k == kernel]
         tile_rs = [r for k, w, r in checks if k == kernel
@@ -763,9 +985,10 @@ def main(argv) -> int:
         {"name": "edge_stage_fwd", "route": "cuda",
          "source": src + "edge_stage_fwd.cu", "replaces": f"{pg}:175",
          "launches": predict_counts["fwd"]["nokeep"]
-         + fit_counts["fwd"]["nokeep"],
+         + fit_counts["fwd"]["nokeep"] + fwd_counts["fwd"]["nokeep"],
          "launches_by_path": {"predict": predict_counts["fwd"]["nokeep"],
-                              "fit": fit_counts["fwd"]["nokeep"]},
+                              "fit": fit_counts["fwd"]["nokeep"],
+                              "forward-only": fwd_counts["fwd"]["nokeep"]},
          **summary("K1", "tile"), "library_ms": None},
         {"name": "edge_stage_fwd_prng", "route": "cuda",
          "source": src + "edge_stage_fwd.cu", "replaces": f"{pg}:226",
@@ -788,6 +1011,18 @@ def main(argv) -> int:
          "replaces": "segger_tpu/ops/pallas/score.py:60",
          "launches": predict_counts["score"], **summary("K5", "tile"),
          "library_ms": sc_tile["library_ms"]},
+        {"name": "gatv2_attention", "route": "cuda",
+         "source": src + "attn_fwd.cu",
+         "replaces": "segger_tpu/ops/pallas/gatv2_attn.py:57",
+         "launches": fwd_counts["attn"],
+         "path": "forward-only path, slide-wide table",
+         **summary("K6", "slide"), "library_ms": None},
+        {"name": "banded_edge_stage", "route": "cuda",
+         "source": src + "attn_fwd.cu",
+         "replaces": "segger_tpu/ops/pallas/banded.py:112",
+         "launches": fwd_counts["banded"],
+         "path": "forward-only path, slide-wide banded table",
+         **summary("K7", "slide"), "library_ms": None},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -11,16 +11,26 @@ Architecture of the reference's ``ISTEncoder`` and of
 
 Each hetero layer runs a GATv2 conv over tx->tx neighbor edges and one
 over the tx->bd supervision ('belongs') edges, the reference's quirk; its
-bd->tx conv never receives edges and is not built here.  Every conv has
-the attention dropout ``attn_dropout`` (0.2, the reference's), active in
-``forward(..., deterministic=False)``.
+bd->tx conv never receives edges, so it is built only with
+``use_bd_to_tx=True`` and runs only on tiles that carry a ``bt`` table.
+Every conv has the attention dropout ``attn_dropout`` (0.2, the
+reference's), active in ``forward(..., deterministic=False)``.
+
+A conv runs the fused edge stage when the tile carries its transpose
+tables (or the degree-bucketed split) and the unfused one otherwise, as
+in the JAX package; ``forward(..., capture_attention=True)`` forces the
+unfused path everywhere so that each conv's attention is recorded.
+``forward(..., intermediates={})`` fills the dict under the flax
+``intermediates`` names: ``embed_tx``, ``embed_bd``, ``layer{i}_tx``,
+``layer{i}_bd`` (post-conv, pre-GELU) and ``conv_{i}/{tt,tb,bt}/
+attention`` for each conv that ran unfused.
 
 Submodule and parameter names follow the flax parameter tree, so
 ``models/convert.py`` maps one onto the other by name.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -67,34 +77,58 @@ class DenseGradEmbed(nn.Module):
 
 class HeteroGATLayer(nn.Module):
     """One SkipGAT-equivalent layer: tx->tx and tx->bd GATv2, per
-    destination type."""
+    destination type, plus the bd->tx conv with ``use_bd_to_tx``."""
 
     def __init__(self, in_channels: int, out_channels: int, heads: int,
-                 dropout: float = 0.2, dtype: Optional[torch.dtype] = None):
+                 dropout: float = 0.2, dtype: Optional[torch.dtype] = None,
+                 use_bd_to_tx: bool = False):
         super().__init__()
         self.tt = GATv2Conv(in_channels, out_channels, heads,
                             dropout=dropout, dtype=dtype)
         self.tb = GATv2Conv(in_channels, out_channels, heads,
                             dropout=dropout, dtype=dtype)
+        self.bt = (GATv2Conv(in_channels, out_channels, heads,
+                             dropout=dropout, dtype=dtype)
+                   if use_bd_to_tx else None)
 
-    def forward(self, x_tx, x_bd, tt_segments: List[Segment],
-                tb_segments: List[Segment], deterministic: bool = True,
-                seeds: Optional[SeedSource] = None):
-        out_tx = self.tt(x_tx, x_tx, tt_segments, deterministic, seeds)
-        return out_tx, self.tb(x_tx, x_bd, tb_segments, deterministic, seeds)
+    def forward(self, x_tx, x_bd, tile: TileGraph,
+                segments: Tuple[Optional[List[Segment]],
+                                Optional[List[Segment]]],
+                deterministic: bool = True,
+                seeds: Optional[SeedSource] = None,
+                capture_attention: bool = False,
+                intermediates: Optional[Dict[str, torch.Tensor]] = None,
+                prefix: str = ""):
+        """``segments``: the tt and tb launches of the fused edge stage,
+        None where the tile has no transpose tables (unfused path)."""
+        tt_segs, tb_segs = segments
+        kw = dict(deterministic=deterministic, seeds=seeds,
+                  capture_attention=capture_attention,
+                  intermediates=intermediates)
+        out_tx = self.tt(x_tx, x_tx, tile.tt, segments=tt_segs,
+                         name=f"{prefix}tt/attention", **kw)
+        out_bd = self.tb(x_tx, x_bd, tile.tb, segments=tb_segs,
+                         name=f"{prefix}tb/attention", **kw)
+        if self.bt is not None and tile.bt is not None:
+            out_tx = out_tx + self.bt(x_bd, x_tx, tile.bt,
+                                      name=f"{prefix}bt/attention", **kw)
+        return out_tx, out_bd
 
 
-def tt_segments(tile: TileGraph) -> List[Segment]:
+def tt_segments(tile: TileGraph) -> Optional[List[Segment]]:
     """The tt edge stage's launches over a degree-bucketed tile: the
     extra-low and low segments at their narrow widths, then the
     full-width tail, each with its transpose table.  As in the JAX
     package the split is taken only when the tile carries the
     per-segment transpose tables; otherwise the whole table is one
-    segment with the full transpose (if any)."""
+    segment with the full transpose, and without that the conv runs
+    unfused (None)."""
     idx, mask = tile.tt.idx, tile.tt.mask
     n = idx.shape[0]
     if not (tile.tt_n_lo > 0 and tile.tt_lo_t is not None
             and tile.tt_hi_t is not None):
+        if tile.tt_t is None:
+            return None
         return [(0, n, idx, mask, tile.tt_t)]
     if tile.tt_n_xlo > 0 and tile.tt_xlo_t is not None:
         bounds = [(0, tile.tt_n_xlo, tile.tt_k_xlo, tile.tt_xlo_t),
@@ -120,9 +154,11 @@ class ISTEncoder(nn.Module):
         use_positional_embeddings: bool = True,
         attn_dropout: float = 0.2,
         dtype: Optional[torch.dtype] = None,
+        use_bd_to_tx: bool = False,
     ):
         """``dtype``: compute dtype of the GATv2 layers (e.g.
-        ``torch.bfloat16``); parameters stay float32."""
+        ``torch.bfloat16``); parameters stay float32.  ``use_bd_to_tx``
+        builds the dormant bd->tx conv of every layer."""
         super().__init__()
         self.normalize_embeddings = normalize_embeddings
         self.gene_embedding = DenseGradEmbed(n_genes, in_channels)
@@ -136,7 +172,8 @@ class ISTEncoder(nn.Module):
         for i, w in enumerate(widths):
             self.add_module(
                 f"conv_{i}",
-                HeteroGATLayer(width, w, n_heads, attn_dropout, dtype)
+                HeteroGATLayer(width, w, n_heads, attn_dropout, dtype,
+                               use_bd_to_tx)
             )
             width = n_heads * w
         self.n_layers = len(widths)
@@ -155,8 +192,9 @@ class ISTEncoder(nn.Module):
             nn.init.zeros_(lin.bias)
         for i in range(self.n_layers):
             layer = getattr(self, f"conv_{i}")
-            layer.tt.reset_parameters(generator)
-            layer.tb.reset_parameters(generator)
+            for conv in (layer.tt, layer.tb, layer.bt):
+                if conv is not None:
+                    conv.reset_parameters(generator)
         # the reference's final projection is a torch Linear, whose bias
         # init keeps isolated nodes off the exact-zero embedding
         for lin in (self.lin_last_tx, self.lin_last_bd):
@@ -165,15 +203,21 @@ class ISTEncoder(nn.Module):
                 lin.bias.uniform_(-bound, bound, generator=generator)
 
     def forward(self, tile: TileGraph, deterministic: bool = True,
-                seeds: Optional[SeedSource] = None
+                seeds: Optional[SeedSource] = None,
+                capture_attention: bool = False,
+                intermediates: Optional[Dict[str, torch.Tensor]] = None,
                 ) -> Dict[str, torch.Tensor]:
         """Embeddings of one tile (tensors on the model's device, no
         batch axis): ``{"tx": (Ntx, out), "bd": (Nbd, out)}``.
 
         ``deterministic=False`` turns the attention dropout on; ``seeds``
         then yields each edge-stage launch's two seed words in launch
-        order (layer by layer: the tt segments, then tb), drawn from
-        torch's default generator when None."""
+        order (layer by layer: the tt segments, then tb, then bt), drawn
+        from torch's default generator when None.  ``capture_attention``
+        runs every conv unfused; ``intermediates``, a dict, receives the
+        activations and attentions named in the module docstring."""
+        record = (intermediates.__setitem__ if intermediates is not None
+                  else lambda key, value: None)
         x_tx = self.gene_embedding(tile.tx_gene)
         x_bd = dense(self.bd_linear, tile.bd_x)
         if self.pos_emb is not None:
@@ -183,13 +227,17 @@ class ISTEncoder(nn.Module):
                 [x_bd, self.pos_emb(tile.bd_pos, tile.bd_valid)], dim=-1)
         # exact (erf) GELU, the reference's
         x_tx, x_bd = F.gelu(x_tx), F.gelu(x_bd)
+        record("embed_tx", x_tx)
+        record("embed_bd", x_bd)
 
-        tt_segs = tt_segments(tile)
-        tb_segs = [(0, tile.tb.idx.shape[0], tile.tb.idx, tile.tb.mask,
-                    tile.tb_t)]
+        segments = (tt_segments(tile), None if tile.tb_t is None else [
+            (0, tile.tb.idx.shape[0], tile.tb.idx, tile.tb.mask, tile.tb_t)])
         for i in range(self.n_layers):
             x_tx, x_bd = getattr(self, f"conv_{i}")(
-                x_tx, x_bd, tt_segs, tb_segs, deterministic, seeds)
+                x_tx, x_bd, tile, segments, deterministic, seeds,
+                capture_attention, intermediates, prefix=f"conv_{i}/")
+            record(f"layer{i}_tx", x_tx)
+            record(f"layer{i}_bd", x_bd)
             x_tx, x_bd = F.gelu(x_tx), F.gelu(x_bd)
 
         x_tx = dense(self.lin_last_tx, x_tx)

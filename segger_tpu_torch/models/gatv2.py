@@ -9,15 +9,28 @@ Math of PyG's ``GATv2Conv`` with ``share_weights=False``,
     alpha = softmax_j(e_ij)                      (over i's in-edges)
     out_i = concat_h( sum_j alpha_ij keep_ij x_l[j,h] ) + bias
 
-The projections are ``F.linear``; the edge stage is the CUDA kernel pair
-of ``ops/postgather.py`` (their plain versions on the CPU), launched once
-per degree-bucket segment of the destination rows through
-``EdgeStageFunction``.  Destinations with no in-edge output ``bias`` only.
+The projections are ``F.linear``.  The edge stage has two paths, as in
+the JAX package:
 
-Dropout follows the JAX package's TPU path: when it is on, every launch
-takes two fresh 32-bit seed words from ``seeds`` (one per tt segment, in
+- **fused** (given ``segments``): the CUDA kernel pair of
+  ``ops/postgather.py`` (their plain versions on the CPU), launched once
+  per degree-bucket segment of the destination rows through
+  ``EdgeStageFunction``; it never forms the attention coefficients;
+- **unfused** (no ``segments``, or ``capture_attention=True``): plain
+  torch ops over the whole padded table (gather with index clipping,
+  leaky-ReLU, per-head logits, ``csr_softmax``, the weighted sum).  It
+  records the attention ``(N_dst, K, H)`` before dropout in
+  ``intermediates``, the analogue of the reference's forward-hook
+  capture.
+
+Destinations with no in-edge output ``bias`` only.
+
+Dropout follows the JAX package: when it is on, every fused launch takes
+two fresh 32-bit seed words from ``seeds`` (one per tt segment, in
 segment order, then one per launch of the next conv), and the keep
-multipliers are hashed from them inside the kernels.
+multipliers are hashed from them inside the kernels; the unfused path
+takes one pair per call and draws flax's ``Dropout`` mask on the
+coefficients from a ``torch.Generator`` seeded with it.
 
 Types follow ``flax.linen.Dense(dtype=...)``: with a compute dtype, the
 projections and ``att`` run in it, and adding the float32 ``bias``
@@ -25,11 +38,12 @@ promotes each conv's output to float32.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from ..ops.gather_agg import csr_gather, csr_softmax
 from ..ops.padded_csr import PaddedCSR
 from ..ops.postgather import gatv2_edge_stage
 from .positional import dense
@@ -87,17 +101,30 @@ class GATv2Conv(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x_src: torch.Tensor, x_dst: torch.Tensor,
-                segments: Sequence[Segment], deterministic: bool = True,
-                seeds: Optional[SeedSource] = None) -> torch.Tensor:
-        """``segments`` cover the destination rows in order (one segment
-        for an unbucketed table).  With ``deterministic=False`` and a
-        dropout rate, each launch draws its seed words from ``seeds``."""
+                csr: PaddedCSR, deterministic: bool = True,
+                seeds: Optional[SeedSource] = None,
+                segments: Optional[Sequence[Segment]] = None,
+                capture_attention: bool = False,
+                intermediates: Optional[Dict[str, torch.Tensor]] = None,
+                name: str = "attention") -> torch.Tensor:
+        """``csr`` is the whole (N_dst, K) table.  ``segments`` cover its
+        destination rows in order (one segment for an unbucketed table)
+        and select the fused path, unless ``capture_attention``.  The
+        unfused path stores its attention under ``intermediates[name]``
+        when a dict is given.  With ``deterministic=False`` and a dropout
+        rate, each launch draws its seed words from ``seeds``."""
         xl = dense(self.lin_l, x_src, self.dtype)
         xr = dense(self.lin_r, x_dst, self.dtype)
         att = self.att[0].to(xl.dtype)
         dropout_on = self.dropout > 0.0 and not deterministic
         if dropout_on and seeds is None:
             seeds = torch_seed_source()
+        if segments is None or capture_attention:
+            out, alpha = self.unfused(
+                xl, xr, att, csr, seeds() if dropout_on else None)
+            if intermediates is not None:
+                intermediates[name] = alpha
+            return out + self.bias
         outs = [
             gatv2_edge_stage(
                 xl, xr[a:b], att, idx, mask, self.heads,
@@ -108,3 +135,30 @@ class GATv2Conv(nn.Module):
             for a, b, idx, mask, csr_t in segments
         ]
         return torch.cat(outs, dim=0) + self.bias
+
+    def unfused(self, xl: torch.Tensor, xr: torch.Tensor, att: torch.Tensor,
+                csr: PaddedCSR, seed: Optional[Tuple[int, int]] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The edge stage in plain torch ops, in the feature dtype
+        (``segger_tpu/models/gatv2.py``'s unfused branch).  Returns
+        ``(out (N_dst, HC) without bias, alpha (N_dst, K, H))``, alpha
+        before dropout; ``seed`` (two words) turns dropout on."""
+        n, k = csr.idx.shape
+        h, c = self.heads, self.out_channels
+        g = csr_gather(xl, csr)                            # (N, K, HC)
+        s = g + xr[:, None, :]
+        slope = torch.tensor(self.negative_slope, dtype=s.dtype,
+                             device=s.device)
+        s = torch.where(s >= 0, s, slope * s)
+        logits = (s.view(n, k, h, c) * att).sum(-1)        # (N, K, H)
+        alpha = csr_softmax(logits, csr)
+        a = alpha
+        if seed is not None:
+            gen = torch.Generator(device=alpha.device)
+            gen.manual_seed((seed[0] << 32) | seed[1])
+            keep_p = 1.0 - self.dropout
+            keep = torch.rand(alpha.shape, generator=gen,
+                              device=alpha.device) < keep_p
+            a = torch.where(keep, alpha / keep_p, 0.0)
+        out = torch.einsum("nkh,nkhc->nhc", a, g.view(n, k, h, c))
+        return out.reshape(n, h * c), alpha

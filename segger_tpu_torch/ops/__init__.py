@@ -2,6 +2,11 @@ from .padded_csr import PaddedCSR, coo_to_padded_csr, transpose_csr
 from .gather_agg import csr_gather, csr_softmax, csr_max, score_candidates
 from .postgather import edge_stage_fwd, edge_stage_fwd_reference
 from .score import score_max, score_max_reference
+from .gatv2_attn import gatv2_attention, gatv2_attention_reference
+from .banded import (
+    BLOCK, K_BAND, WINDOW, band_graph, banded_edge_stage,
+    banded_edge_stage_reference,
+)
 
 __all__ = [
     "PaddedCSR",
@@ -15,4 +20,12 @@ __all__ = [
     "edge_stage_fwd_reference",
     "score_max",
     "score_max_reference",
+    "gatv2_attention",
+    "gatv2_attention_reference",
+    "band_graph",
+    "banded_edge_stage",
+    "banded_edge_stage_reference",
+    "BLOCK",
+    "WINDOW",
+    "K_BAND",
 ]

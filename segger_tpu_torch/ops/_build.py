@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-KERNELS = ("edge_stage_fwd", "edge_stage_bwd", "score")
+KERNELS = ("edge_stage_fwd", "edge_stage_bwd", "score", "attn_fwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

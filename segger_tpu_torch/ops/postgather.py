@@ -137,7 +137,7 @@ def _keep_c(mode, keep, seed, rate, n, k, heads, dtype, device):
     return None
 
 
-def _slope_t(negative_slope, dtype) -> float:
+def dtype_slope(negative_slope, dtype) -> float:
     """The slope as the feature dtype holds it (JAX rounds the constant
     of ``slope * p``)."""
     return float(torch.tensor(negative_slope, dtype=dtype))
@@ -228,7 +228,7 @@ def _fn(name, n_ptr_head, n_int, tail):
     return fn
 
 
-def _on_cuda(name, xl, *others):
+def on_cuda(name, xl, *others):
     if xl.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {xl.device}")
     for t in others:
@@ -261,7 +261,7 @@ def edge_stage_fwd(xl, xr, att, idx, mask, heads: int,
     if xl.device.type == "cpu":
         return edge_stage_fwd_reference(xl, xr, att, idx, mask, heads,
                                         negative_slope, seed, rate, keep)
-    _on_cuda("edge_stage_fwd", xl, xr, att, idx, mask, keep)
+    on_cuda("edge_stage_fwd", xl, xr, att, idx, mask, keep)
     _check(xl, xr, att, idx, mask, heads, keep)
     mode = _mode(seed, keep)
     xl, xr, att = xl.contiguous(), xr.contiguous(), att.contiguous()
@@ -285,7 +285,7 @@ def edge_stage_fwd(xl, xr, att, idx, mask, heads: int,
         err = fn(xl.data_ptr(), xr.data_ptr(), att.data_ptr(),
                  idx.data_ptr(), mask.data_ptr(),
                  0 if keep is None else keep.data_ptr(), n, xl.shape[0], k,
-                 heads, hc, _slope_t(negative_slope, xl.dtype),
+                 heads, hc, dtype_slope(negative_slope, xl.dtype),
                  int(xl.dtype == torch.bfloat16), MODES.index(mode), s0, s1,
                  thresh, inv_keep, out.data_ptr(), alpha.data_ptr(), stream)
     if err:
@@ -315,7 +315,7 @@ def edge_stage_bwd(xl, xr, att, idx, mask, alpha, go, heads: int,
         return edge_stage_bwd_reference(xl, xr, att, idx, mask, alpha, go,
                                         heads, negative_slope, seed, rate,
                                         keep)
-    _on_cuda("edge_stage_bwd", xl, xr, att, idx, mask, alpha, go, keep)
+    on_cuda("edge_stage_bwd", xl, xr, att, idx, mask, alpha, go, keep)
     _check(xl, xr, att, idx, mask, heads, keep)
     mode = _mode(seed, keep)
     n, k = idx.shape
@@ -351,7 +351,7 @@ def edge_stage_bwd(xl, xr, att, idx, mask, alpha, go, heads: int,
                  idx.data_ptr(), mask.data_ptr(), alpha.data_ptr(),
                  0 if keep is None else keep.data_ptr(), go.data_ptr(), n,
                  xl.shape[0], k, heads, hc,
-                 _slope_t(negative_slope, xl.dtype), float(negative_slope),
+                 dtype_slope(negative_slope, xl.dtype), float(negative_slope),
                  int(xl.dtype == torch.bfloat16), MODES.index(mode), s0, s1,
                  thresh, inv_keep, dg.data_ptr(), dxr.data_ptr(),
                  datt_part.data_ptr(),

@@ -39,6 +39,36 @@ _SCRIPT = textwrap.dedent("""
     assert np.array_equal(np.sort(out["row_index"]), np.arange(3000))
     ok = out["cell_encoding"] >= 0
     assert ok.mean() > 0.99 and np.isfinite(out["similarity"][ok]).all()
+
+    # the attention slice: the banded table of the strip-major slide, both
+    # attention ops on it, and one capture forward of the encoder
+    import torch
+    from segger_tpu_torch.data.neighbors_host import kdtree_neighbors
+    from segger_tpu_torch.data.partition import _strip_major_order
+    from segger_tpu_torch.ops import (
+        band_graph, banded_edge_stage, gatv2_attention)
+    from segger_tpu_torch.ops.padded_csr import coo_to_padded_csr
+    pos = g.tx_pos[_strip_major_order(g.tx_pos)]
+    src, dst = kdtree_neighbors(pos, max_k=5, max_dist=5.0)
+    csr = coo_to_padded_csr(dst, src, n_dst=len(pos), pad_to_multiple=8)
+    lo, idxl, mask, ok = band_graph(csr, n_src=len(pos))
+    assert ok
+    x = torch.randn(idxl.shape[0], 32)
+    att, bias = torch.randn(2, 16), torch.randn(32)
+    k6 = gatv2_attention(x[:len(pos)], x[:len(pos)], torch.from_numpy(
+        csr.idx), torch.from_numpy(csr.mask), att, bias, 2)
+    k7 = banded_edge_stage(x[:len(pos)], x, torch.from_numpy(lo),
+                           torch.from_numpy(idxl), torch.from_numpy(mask),
+                           att, bias, 2)
+    assert torch.allclose(k6, k7[:len(pos)], atol=1e-5)
+    plan = tr._batch_plans(specs, use_xlo=True)[0]
+    tile = tr._build_batch(plan, cache=False).to("cpu").map_arrays(
+        lambda a: a[0])
+    inter = dict()
+    with torch.no_grad():
+        emb = tr.model(tile, capture_attention=True, intermediates=inter)
+    assert torch.isfinite(emb["tx"]).all()
+    assert sum(k.endswith("/attention") for k in inter) == 4  # 2 layers
     assert not any(m == "jax" or m.startswith(("jax.", "flax", "optax"))
                    for m in sys.modules if sys.modules[m] is not None)
     print("OK")

@@ -12,6 +12,12 @@ from segger_tpu_torch.ops.postgather import (
     edge_stage_fwd_reference, prng_keep_reference,
 )
 from segger_tpu_torch.ops.score import score_max, score_max_reference
+from segger_tpu_torch.ops.banded import (
+    band_graph, banded_edge_stage, banded_edge_stage_reference,
+)
+from segger_tpu_torch.ops.gatv2_attn import (
+    gatv2_attention, gatv2_attention_reference,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -239,3 +245,88 @@ def test_backward_kernel_repeats_bit_for_bit(cuda, mode, rate):
     b = edge_stage_bwd(xl, xr, att, idx, mask, alpha, go, heads, **kw)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert torch.equal(a[2], b[2])
+
+
+# ---------------------------------------------------------------------
+# fused attention (K6) and the banded edge stage (K7)
+# ---------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hc,heads", [(128, 2), (32, 1)] + SHAPES[1:])
+@pytest.mark.parametrize("k", [1, 4, 13, 40])
+def test_gatv2_attention_kernel_matches_reference(cuda, k, hc, heads, dtype):
+    gen = torch.Generator().manual_seed(k * 13 + hc)
+    n, n_src = 700, 500
+    xl, xr, att = _features(n, n_src, hc, heads, dtype, gen, cuda)
+    bias = torch.randn(hc, generator=gen).to(cuda)
+    idx, mask = _table(n, k, n_src, gen, cuda)
+    out = gatv2_attention(xl, xr, idx, mask, att, bias, heads)
+    ref = gatv2_attention_reference(xl, xr, idx, mask, att, bias, heads)
+    torch.cuda.synchronize()
+    # f32: one arithmetic, other summation order; bf16: the same bf16
+    # logits (one summation order), then an f32 sum that may round to the
+    # neighbouring bf16 value
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    assert torch.equal(out[:5], bias.to(dtype).expand(5, hc))
+
+
+def _strip_major_table(n, seed, k=8):
+    import numpy as np
+
+    from segger_tpu_torch.data.neighbors_host import kdtree_neighbors
+    from segger_tpu_torch.data.partition import _strip_major_order
+    from segger_tpu_torch.ops.padded_csr import coo_to_padded_csr
+
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0, 600.0 * (n / 50_000) ** 0.5, (n, 2))
+    pos = pos[_strip_major_order(pos)]
+    src, dst = kdtree_neighbors(pos, max_k=5, max_dist=5.0)
+    return coo_to_padded_csr(dst, src, n_dst=n, k=k)
+
+
+@pytest.mark.parametrize("hc,heads", [(128, 2), (48, 3)])
+@pytest.mark.parametrize("n", [3_000, 20_000])
+def test_banded_kernel_matches_reference(cuda, n, hc, heads):
+    csr = _strip_major_table(n, seed=n + hc)
+    lo, idxl, mask, ok = band_graph(csr, n_src=n)
+    assert ok
+    gen = torch.Generator().manual_seed(n)
+    n_pad = idxl.shape[0]
+    xl, xr, att = _features(n_pad, n, hc, heads, torch.float32, gen, cuda)
+    bias = torch.randn(hc, generator=gen).to(cuda)
+    args = (xl, xr, torch.from_numpy(lo).to(cuda),
+            torch.from_numpy(idxl).to(cuda), torch.from_numpy(mask).to(cuda),
+            att, bias, heads)
+    out = banded_edge_stage(*args)
+    ref = banded_edge_stage_reference(*args)
+    k6 = gatv2_attention(xl, xr[:n], torch.from_numpy(csr.idx).to(cuda),
+                         torch.from_numpy(csr.mask).to(cuda), att, bias,
+                         heads)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(out[:n], k6, atol=1e-5, rtol=1e-5)
+    assert torch.equal(out[n:], bias.expand(n_pad - n, hc))
+
+
+def test_attention_launch_counters_and_checks(cuda):
+    gen = torch.Generator().manual_seed(1)
+    n = 512
+    idx, mask = _table(n, 16, n, gen, "cpu")
+    x = torch.randn(n, 64, generator=gen)
+    att, bias = torch.randn(2, 32, generator=gen), torch.randn(64)
+    lo = torch.zeros(n // 256, dtype=torch.int32)
+    a0, b0 = gatv2_attention.launches, banded_edge_stage.launches
+    gatv2_attention(x, x, idx, mask, att, bias, 2)          # CPU: plain
+    banded_edge_stage(x, x, lo, idx, mask, att, bias, 2)
+    assert (gatv2_attention.launches, banded_edge_stage.launches) == (a0, b0)
+    xc, ic, mc, ac, bc, lc = (t.to(cuda) for t in (x, idx, mask, att, bias,
+                                                   lo))
+    gatv2_attention(xc, xc, ic, mc, ac, bc, 2)
+    banded_edge_stage(xc, xc, lc, ic, mc, ac, bc, 2)
+    assert (gatv2_attention.launches, banded_edge_stage.launches) == (
+        a0 + 1, b0 + 1)
+    with pytest.raises(ValueError):          # no mixing devices
+        gatv2_attention(xc, xc, idx, mask, ac, bc, 2)
+    with pytest.raises(TypeError):           # the banded op is float32
+        banded_edge_stage(xc.bfloat16(), xc.bfloat16(), lc, ic, mc,
+                          ac.bfloat16(), bc, 2)
