@@ -14,7 +14,10 @@ Phases (any failure exits non-zero; nothing is caught):
    print the build time and each kernel's registers and spills;
 2. hold each kernel against its plain PyTorch version on the card, at
    N = 50,000 rows and on the main paths' own tile tables, and time both
-   (CUDA events), beside the least time the card could take for the same
+   (CUDA events around the wrapper calls; for the edge-stage backward
+   also ``device_ms``, the kernel's own device time from torch.profiler,
+   since at tile sizes the wrapper's host work outruns the kernel),
+   beside the least time the card could take for the same
    work: K1 (edge-stage forward), K2 (its hashed-dropout mode), K3 (the
    edge-stage backward, no-dropout and hashed-dropout modes, run twice
    to show it repeats bit for bit), K4 (the keep-tensor mode of both),
@@ -135,6 +138,35 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device milliseconds of one launch of the CUDA kernel whose
+    name contains ``kernel``, from torch.profiler over ``reps`` warm calls
+    of ``fn()``: the kernel's own time on the card, whatever the host
+    spends around it.  (``cuda_ms`` brackets the calls with events, so at
+    small sizes it measures how fast the wrapper enqueues.)"""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    counts = []
+    for _ in range(3):     # a trace now and then comes back without kernels
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and kernel in e.key]
+        counts.append(sum(e.count for e in events))
+        if counts[-1] == reps:
+            return sum(e.self_device_time_total for e in events) / reps / 1e3
+    raise AssertionError(f"device_ms: {counts} launches of {kernel} traced "
+                         f"in three tries, expected {reps}")
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -306,13 +338,17 @@ def check_edge_stage_bwd(idx, mask, n_src, dtype, rng, heads=2, hc=128,
         raise AssertionError("edge_stage_bwd: two runs differ")
     launches = dict(edge_stage_bwd.launches)
     ms = cuda_ms(lambda: edge_stage_bwd(*args, **kw), 20)
+    dev_ms = device_ms(lambda: edge_stage_bwd(*args, **kw), 20,
+                       "edge_stage_bwd_kernel")
     plain_ms = cuda_ms(lambda: edge_stage_bwd_reference(*args, **kw), 3)
     edge_stage_bwd.launches = launches
     size = xl.element_size()
     n_valid = int(mask.sum())
-    n_blocks = min(-(-n // 8), 1024)
     # reads: the referenced source rows, xr, G, alpha, idx/mask; writes:
-    # dg, dxr and the datt partials (keep mode: keep in, dkeep out)
+    # dg, dxr and the datt partials (keep mode: keep in, dkeep out).  The
+    # partials are counted at one per 8 rows up to 1,024, as the bound was
+    # first set, so that it stays one yardstick across kernel designs
+    n_blocks = min(-(-n // 8), 1024)
     n_bytes = (_row_bytes(idx, mask, hc, size) + 2 * n * hc * size
                + alpha.numel() * 4 + n * k * hc * size + n * hc * size
                + n_blocks * hc * 4)
@@ -325,7 +361,8 @@ def check_edge_stage_bwd(idx, mask, n_src, dtype, rng, heads=2, hc=128,
             "max_abs_err": max(errs.values()), "errs": errs,
             "tol": f"dg/dkeep atol {atol} rtol {rtol}, dxr and datt "
                    f"{datt_tol} of their max; two runs bit-equal",
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms,
             "bound_by": b_by, "bytes": n_bytes, "valid_slots": n_valid,
             "empty_rows": int((~mask.any(1)).sum())}
 
@@ -970,6 +1007,8 @@ def main(argv) -> int:
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             # one layer's launches on one tile, at the main path's shapes
             "ms": sum(r["ms"] for r in tile_rs),
+            **({"device_ms": sum(r["device_ms"] for r in tile_rs)}
+               if all("device_ms" in r for r in tile_rs) else {}),
             "plain_ms": sum(r["plain_ms"] for r in tile_rs),
             "bound_ms": sum(r["bound_ms"] for r in tile_rs),
             "bound_by": "bytes" if all(r["bound_by"] == "bytes"

@@ -26,7 +26,7 @@ counts its launches per mode in ``.launches`` (a dict).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,10 +36,12 @@ _NEG_INF = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HC = 512
 MODES = ("nokeep", "prng", "keep")
-# blocks of the backward's grid-stride loop (and datt partials): a fixed
-# count for a given N, so the partial sums, and the result, repeat
-_BWD_MAX_BLOCKS = 1024
-_WARPS_PER_BLOCK = 8
+SMEM_MAX = 232_448       # dynamic shared memory one block may use (H100)
+_BWD_THREADS = 128
+# blocks of the backward's grid-stride loop (and datt partials): a count
+# fixed by N alone, so the partial sums, and the result, repeat
+_BWD_ROWS_PER_BLOCK = 4
+_BWD_MAX_BLOCKS = 4096
 
 Seed = Optional[Sequence[int]]
 
@@ -218,6 +220,65 @@ def edge_stage_bwd_reference(xl, xr, att, idx, mask, alpha, go, heads: int,
     return dg, dxr, datt.view(heads, ch), dkeep
 
 
+class BwdLaunch(NamedTuple):
+    """Launch configuration of the backward kernel (``edge_stage_bwd.cu``):
+    ``lanes`` per row, each holding ``nv`` chunks of ``chunk_bytes``;
+    ``rows`` per block; ``slots`` of each row staged in shared memory at a
+    time (K when every slot fits); ``smem_bytes`` of dynamic shared memory;
+    ``n_blocks`` in the grid; and ``head_lanes``, the lanes of a head when
+    the shape allows the kernel's fast path (one chunk a lane, no chunk
+    across two heads, a power-of-two lanes per head), else 0."""
+    lanes: int
+    chunk_bytes: int
+    nv: int
+    rows: int
+    slots: int
+    smem_bytes: int
+    n_blocks: int
+    head_lanes: int
+
+
+def _pow2(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
+
+
+def bwd_launch_config(n: int, k: int, hc: int, heads: int,
+                      dtype) -> BwdLaunch:
+    """The backward kernel's launch configuration for an (N, K) table of
+    HC-wide rows with H heads in ``dtype``.  A row is cut into chunks of 16
+    bytes (rows of 512 bytes or more) or 8 over a power-of-two number of
+    lanes (at most 32); a block holds 128 threads' worth of rows; it
+    stages as many slots of each row as fit in :data:`SMEM_MAX` beside the
+    per-row alpha, dA/de and alpha*keep (K*H float32 each), the datt
+    reduction buffer (HC float32 a row) and the slots' source rows (K
+    int32).  The block count depends on N alone."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    chunk_bytes = 16 if hc * size >= 512 else 8
+    vec = chunk_bytes // size
+    chunks = -(-hc // vec)
+    lanes = min(32, _pow2(chunks))
+    nv = _pow2(-(-chunks // lanes))
+    hc_pad = lanes * nv * vec
+    head_lanes = hc // heads // vec
+    if not (nv == 1 and (hc // heads) % vec == 0 and head_lanes >= 1
+            and _pow2(head_lanes) == head_lanes):
+        head_lanes = 0
+    rows = _BWD_THREADS // lanes
+    while True:
+        fixed = rows * ((3 * k * heads + hc_pad) * 4 + k * 4)
+        slots = min(k, (SMEM_MAX - fixed) // (rows * hc_pad * size))
+        if slots >= 1:
+            break
+        if rows == 1:
+            raise ValueError(f"edge_stage_bwd: K*H = {k * heads} slot-heads "
+                             "do not fit in shared memory")
+        rows //= 2
+    n_blocks = max(1, min(-(-n // _BWD_ROWS_PER_BLOCK), _BWD_MAX_BLOCKS))
+    return BwdLaunch(lanes, chunk_bytes, nv, rows, slots,
+                     fixed + rows * slots * hc_pad * size, n_blocks,
+                     head_lanes)
+
+
 def _fn(name, n_ptr_head, n_int, tail):
     lib = _build.load(name)
     fn = getattr(lib, f"sgt_{name}")
@@ -336,15 +397,19 @@ def edge_stage_bwd(xl, xr, att, idx, mask, alpha, go, heads: int,
              if mode == "keep" else None)
     if n == 0:
         return dg, dxr, torch.zeros((heads, hc // heads), device=dev), dkeep
-    n_blocks = min(-(-n // _WARPS_PER_BLOCK), _BWD_MAX_BLOCKS)
-    datt_part = torch.empty((n_blocks, hc), dtype=torch.float32, device=dev)
-    de_buf = torch.empty((n, k, heads), dtype=torch.float32, device=dev)
+    cfg = bwd_launch_config(n, k, hc, heads, xl.dtype)
+    datt_part = torch.empty((cfg.n_blocks, hc), dtype=torch.float32,
+                            device=dev)
+    # rows of whole chunks: hc * size a multiple of the chunk and every
+    # base aligned to it
+    vec_io = (hc * xl.element_size()) % cfg.chunk_bytes == 0 and all(
+        t.data_ptr() % cfg.chunk_bytes == 0 for t in (xl, xr, go, dg, dxr))
     s0, s1, thresh, inv_keep = _hash_args(mode, seed, rate)
     fn = _fn("edge_stage_bwd", 8, 5, [
         ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
         ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+        *[ctypes.c_int] * 9, ctypes.c_void_p])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(xl.data_ptr(), xr.data_ptr(), att.data_ptr(),
@@ -355,8 +420,8 @@ def edge_stage_bwd(xl, xr, att, idx, mask, alpha, go, heads: int,
                  int(xl.dtype == torch.bfloat16), MODES.index(mode), s0, s1,
                  thresh, inv_keep, dg.data_ptr(), dxr.data_ptr(),
                  datt_part.data_ptr(),
-                 0 if dkeep is None else dkeep.data_ptr(),
-                 de_buf.data_ptr(), n_blocks, stream)
+                 0 if dkeep is None else dkeep.data_ptr(), *cfg[:7],
+                 int(vec_io), cfg.head_lanes if vec_io else 0, stream)
     if err:
         raise RuntimeError(f"edge_stage_bwd kernel launch failed: "
                            f"CUDA error {err}")

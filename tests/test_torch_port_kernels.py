@@ -8,8 +8,8 @@ import pytest
 import torch
 
 from segger_tpu_torch.ops.postgather import (
-    edge_stage_bwd, edge_stage_bwd_reference, edge_stage_fwd,
-    edge_stage_fwd_reference, prng_keep_reference,
+    bwd_launch_config, edge_stage_bwd, edge_stage_bwd_reference,
+    edge_stage_fwd, edge_stage_fwd_reference, prng_keep_reference,
 )
 from segger_tpu_torch.ops.score import score_max, score_max_reference
 from segger_tpu_torch.ops.banded import (
@@ -212,6 +212,14 @@ def test_backward_kernel_matches_reference(cuda, mode, rate, k, hc, heads,
     kw = _dropout(mode, rate, n, k, heads, gen, cuda)
     _, alpha = edge_stage_fwd_reference(xl, xr, att, idx, mask, heads, **kw)
     go = torch.randn(n, hc, generator=gen).to(dtype).to(cuda)
+    _check_backward(xl, xr, att, idx, mask, alpha, go, heads, mode, kw)
+
+
+def _check_backward(xl, xr, att, idx, mask, alpha, go, heads, mode, kw):
+    """The kernel against its plain version on one input: dg and dkeep
+    elementwise, dxr and datt against their own scale, dg zero on masked
+    slots and dxr zero on rows without a valid slot."""
+    dtype = xl.dtype
     got = edge_stage_bwd(xl, xr, att, idx, mask, alpha, go, heads, **kw)
     want = edge_stage_bwd_reference(xl, xr, att, idx, mask, alpha, go,
                                     heads, **kw)
@@ -229,10 +237,88 @@ def test_backward_kernel_matches_reference(cuda, mode, rate, k, hc, heads,
         torch.testing.assert_close(got[3].float(), want[3].float(), **tol)
     else:
         assert got[3] is None
-    assert (got[0][~mask] == 0).all() and (got[1][:5] == 0).all()
+    assert (got[0][~mask] == 0).all()
+    assert (got[1][~mask.any(1)] == 0).all()
 
 
-@pytest.mark.parametrize("mode,rate", [("nokeep", 0.0), ("prng", 0.2)])
+def _staging_limit(hc, heads, dtype):
+    """The largest K whose slots the backward kernel stages all at once."""
+    k = 1
+    while bwd_launch_config(700, k + 1, hc, heads, dtype).slots == k + 1:
+        k += 1
+    return k
+
+
+@pytest.mark.parametrize("mode,rate", [("prng", 0.2), ("keep", 0.0)])
+@pytest.mark.parametrize("above", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_at_and_above_staging_limit(cuda, dtype, above,
+                                                    mode, rate):
+    """HC = 512: K at the staging limit (every slot staged once) and one
+    above it (slots in chunks, the dg pass staging them again)."""
+    hc, heads = 512, 8
+    k = _staging_limit(hc, heads, dtype) + above
+    assert (bwd_launch_config(700, k, hc, heads, dtype).slots < k) == above
+    gen = torch.Generator().manual_seed(k * 17 + above)
+    n, n_src = 700, 500
+    xl, xr, att = _features(n, n_src, hc, heads, dtype, gen, cuda)
+    idx, mask = _table(n, k, n_src, gen, cuda)
+    kw = _dropout(mode, rate, n, k, heads, gen, cuda)
+    _, alpha = edge_stage_fwd_reference(xl, xr, att, idx, mask, heads, **kw)
+    go = torch.randn(n, hc, generator=gen).to(dtype).to(cuda)
+    _check_backward(xl, xr, att, idx, mask, alpha, go, heads, mode, kw)
+
+
+@pytest.mark.parametrize("mode,rate", [MODES[0], MODES[2], MODES[4]])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_ragged_blocks(cuda, dtype, mode, rate):
+    """N not a multiple of the rows a block takes, more rows than one pass
+    of the grid covers, and rows without a valid slot at the end of each
+    block's rows and of the table."""
+    hc, heads, k = 128, 2, 12
+    n, n_src = 16 * 1024 + 37, 3_000
+    cfg = bwd_launch_config(n, k, hc, heads, dtype)
+    assert n % cfg.rows and n > cfg.rows * cfg.n_blocks
+    gen = torch.Generator().manual_seed(29)
+    xl, xr, att = _features(n, n_src, hc, heads, dtype, gen, cuda)
+    idx, mask = _table(n, k, n_src, gen, "cpu")
+    rows = torch.arange(n)
+    mask[(rows % cfg.rows == cfg.rows - 1) | (rows >= n - 10)] = False
+    idx, mask = idx.to(cuda), mask.to(cuda)
+    kw = _dropout(mode, rate, n, k, heads, gen, cuda)
+    _, alpha = edge_stage_fwd_reference(xl, xr, att, idx, mask, heads, **kw)
+    go = torch.randn(n, hc, generator=gen).to(dtype).to(cuda)
+    _check_backward(xl, xr, att, idx, mask, alpha, go, heads, mode, kw)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("hc,heads", [(36, 3), (128, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_unaligned_rows(cuda, dtype, hc, heads, offset):
+    """Rows that do not start on 16 bytes: HC = 36 (72 or 144 bytes), and
+    tensors one element past an aligned base, so the kernel moves rows
+    element by element."""
+    gen = torch.Generator().manual_seed(hc + offset)
+    n, n_src, k = 700, 500, 13
+
+    def table(rows, fill):
+        flat = torch.empty(rows * hc + offset, dtype=dtype, device=cuda)
+        t = flat[offset:].view(rows, hc)
+        t.copy_(fill.to(dtype))
+        return t
+
+    xl = table(n_src, torch.randn(n_src, hc, generator=gen))
+    xr = table(n, torch.randn(n, hc, generator=gen))
+    go = table(n, torch.randn(n, hc, generator=gen))
+    att = torch.randn(heads, hc // heads, generator=gen).to(dtype).to(cuda)
+    idx, mask = _table(n, k, n_src, gen, cuda)
+    kw = _dropout("prng", 0.2, n, k, heads, gen, cuda)
+    _, alpha = edge_stage_fwd_reference(xl, xr, att, idx, mask, heads, **kw)
+    _check_backward(xl, xr, att, idx, mask, alpha, go, heads, "prng", kw)
+
+
+@pytest.mark.parametrize("mode,rate", [("nokeep", 0.0), ("prng", 0.2),
+                                       ("keep", 0.0)])
 def test_backward_kernel_repeats_bit_for_bit(cuda, mode, rate):
     gen = torch.Generator().manual_seed(3)
     n, n_src, k, hc, heads = 30_000, 20_000, 12, 128, 2
@@ -245,6 +331,9 @@ def test_backward_kernel_repeats_bit_for_bit(cuda, mode, rate):
     b = edge_stage_bwd(xl, xr, att, idx, mask, alpha, go, heads, **kw)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert torch.equal(a[2], b[2])
+    assert (a[3] is None) == (mode != "keep")
+    if mode == "keep":
+        assert torch.equal(a[3], b[3])
 
 
 # ---------------------------------------------------------------------
