@@ -1,6 +1,8 @@
 // Shared pieces of the GATv2 edge-stage kernels (edge_stage_fwd.cu,
-// edge_stage_bwd.cu): type conversions with the TPU kernels' rounding,
-// warp reductions, and the dropout keep multiplier of the three modes.
+// edge_stage_bwd.cu, attn_fwd.cu): type conversions with the TPU kernels'
+// rounding, warp reductions, the dropout keep multiplier of the three
+// modes, and the row groups of the forward and backward kernels (chunks of
+// a row, their arithmetic in the feature type, cp.async staging).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -91,6 +93,218 @@ __device__ __forceinline__ float keep_value(const T* __restrict__ keep,
   if (MODE == kModePrng) return prng_keep(hp, row, slot, head, k, heads);
   if (MODE == kModeKeep) return to_f32(keep[slot_flat * heads + head]);
   return 1.f;
+}
+
+template <typename T>
+__device__ __forceinline__ float keep_of(int mode, const T* keep,
+                                         const KeepHash& hash, int row,
+                                         int j, int h, int k, int heads,
+                                         size_t slot_flat) {
+  if (mode == kModePrng)
+    return keep_value<T, kModePrng>(keep, hash, row, j, h, k, heads,
+                                    slot_flat);
+  if (mode == kModeKeep)
+    return keep_value<T, kModeKeep>(keep, hash, row, j, h, k, heads,
+                                    slot_flat);
+  return 1.f;
+}
+
+// ---------------------------------------------------------------------
+// Row groups: a block of kMaxThreads threads serves R = kMaxThreads / L
+// rows, L lanes a row (a power of two <= 32), each lane holding NV chunks
+// of CB = 4*W contiguous bytes; chunk v of lane l covers channels
+// (v*L + l)*VEC.., so neighbouring lanes touch neighbouring bytes.
+// ---------------------------------------------------------------------
+constexpr int kMaxThreads = 128;
+
+// the sum over the `width` lanes of a row group
+__device__ __forceinline__ float group_sum(float v, int width) {
+  for (int off = width >> 1; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off, width);
+  return v;
+}
+
+// A chunk: W 32-bit words, each one f32 or one bf16x2 pair.
+template <int W>
+struct Chunk {
+  uint32_t w[W];
+};
+
+template <int W>
+__device__ __forceinline__ Chunk<W> load_vec(const void* p) {
+  Chunk<W> c;
+  if constexpr (W == 4) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    c.w[0] = u.x, c.w[1] = u.y, c.w[2] = u.z, c.w[3] = u.w;
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    c.w[0] = u.x, c.w[1] = u.y;
+  }
+  return c;
+}
+
+template <int W>
+__device__ __forceinline__ void store_vec(void* p, const Chunk<W>& c) {
+  if constexpr (W == 4)
+    *reinterpret_cast<uint4*>(p) = make_uint4(c.w[0], c.w[1], c.w[2], c.w[3]);
+  else
+    *reinterpret_cast<uint2*>(p) = make_uint2(c.w[0], c.w[1]);
+}
+
+template <typename T>
+constexpr int kPerWord = 4 / (int)sizeof(T);  // channels in a word
+
+template <typename T, int W>
+__device__ __forceinline__ void unpack(const Chunk<W>& c, float* f) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    if constexpr (sizeof(T) == 4) {
+      f[i] = __uint_as_float(c.w[i]);
+    } else {  // a bf16 is the high half of its f32
+      f[2 * i] = __uint_as_float(c.w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(c.w[i] & 0xffff0000u);
+    }
+  }
+}
+
+// round to nearest even into the feature type
+template <typename T, int W>
+__device__ __forceinline__ Chunk<W> pack(const float* f) {
+  Chunk<W> c;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    if constexpr (sizeof(T) == 4) {
+      c.w[i] = __float_as_uint(f[i]);
+    } else {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+      c.w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+  }
+  return c;
+}
+
+// a * b and a + b rounded to T, word by word.  The product or sum of two
+// bf16 values is exact in f32 (a sum whose exponents differ by more than
+// 16 rounds to the larger either way), so one bf16x2 operation, which
+// rounds the exact result once, equals round_T of the f32 result.
+template <typename T, int W>
+__device__ __forceinline__ Chunk<W> mul_t(const Chunk<W>& a,
+                                          const Chunk<W>& b) {
+  Chunk<W> c;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    if constexpr (sizeof(T) == 4) {
+      c.w[i] = __float_as_uint(
+          __fmul_rn(__uint_as_float(a.w[i]), __uint_as_float(b.w[i])));
+    } else {
+      const __nv_bfloat162 r =
+          __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&a.w[i]),
+                  *reinterpret_cast<const __nv_bfloat162*>(&b.w[i]));
+      c.w[i] = *reinterpret_cast<const uint32_t*>(&r);
+    }
+  }
+  return c;
+}
+
+template <typename T, int W>
+__device__ __forceinline__ Chunk<W> add_t(const Chunk<W>& a,
+                                          const Chunk<W>& b) {
+  Chunk<W> c;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    if constexpr (sizeof(T) == 4) {
+      c.w[i] = __float_as_uint(
+          __fadd_rn(__uint_as_float(a.w[i]), __uint_as_float(b.w[i])));
+    } else {
+      const __nv_bfloat162 r =
+          __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&a.w[i]),
+                  *reinterpret_cast<const __nv_bfloat162*>(&b.w[i]));
+      c.w[i] = *reinterpret_cast<const uint32_t*>(&r);
+    }
+  }
+  return c;
+}
+
+// one chunk of a row at channel c0 (c0 < hc): a vector load when vec,
+// else element loads masked at hc
+template <typename T, int W>
+__device__ __forceinline__ void load_chunk(const T* __restrict__ row, int c0,
+                                           int hc, bool vec, float* f) {
+  constexpr int VEC = W * kPerWord<T>;
+  if (vec) {
+    unpack<T, W>(load_vec<W>(row + c0), f);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < VEC; ++e)
+    f[e] = c0 + e < hc ? to_f32(row[c0 + e]) : 0.f;
+}
+
+template <typename T, int W>
+__device__ __forceinline__ void store_chunk(T* __restrict__ row, int c0,
+                                            int hc, bool vec,
+                                            const float* f) {
+  constexpr int VEC = W * kPerWord<T>;
+  if (vec) {
+    store_vec<W>(row + c0, pack<T, W>(f));
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < VEC; ++e)
+    if (c0 + e < hc) row[c0 + e] = from_f32<T>(f[e]);
+}
+
+// cp.async of one chunk (16 bytes bypass L1; 8 bytes through it)
+template <int W>
+__device__ __forceinline__ void cp_async_chunk(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  if constexpr (W == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(gmem));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// The lane's chunks of the source rows of slots [j0, j0 + nc) of its row
+// into its staging rows; masked slots (src_s < 0) are not copied (they are
+// never read).
+template <typename T, int W, int NV>
+__device__ __forceinline__ void stage_slots(T* stage, const T* __restrict__ xl,
+                                            const int* src_s, int j0, int nc,
+                                            int hc, int hc_pad, int lanes,
+                                            int lg, bool vec) {
+  constexpr int VEC = W * kPerWord<T>;
+  for (int jj = 0; jj < nc; ++jj) {
+    const int src = src_s[j0 + jj];
+    if (src < 0) continue;
+    const T* g = xl + (size_t)src * hc;
+    T* dst = stage + (size_t)jj * hc_pad;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int c0 = (v * lanes + lg) * VEC;
+      if (c0 >= hc) continue;
+      if (vec) {
+        cp_async_chunk<W>(dst + c0, g + c0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          dst[c0 + e] = c0 + e < hc ? g[c0 + e] : from_f32<T>(0.f);
+      }
+    }
+  }
+  cp_async_wait_all();
 }
 
 }  // namespace sgt

@@ -37,11 +37,17 @@ _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HC = 512
 MODES = ("nokeep", "prng", "keep")
 SMEM_MAX = 232_448       # dynamic shared memory one block may use (H100)
-_BWD_THREADS = 128
-# blocks of the backward's grid-stride loop (and datt partials): a count
-# fixed by N alone, so the partial sums, and the result, repeat
-_BWD_ROWS_PER_BLOCK = 4
-_BWD_MAX_BLOCKS = 4096
+_THREADS = 128           # threads a block of either edge-stage kernel
+# blocks of the kernels' grid-stride loops (and the backward's datt
+# partials): a count fixed by N alone, so the partial sums, and the
+# result, repeat
+_ROWS_PER_BLOCK = 4
+_MAX_BLOCKS = 4096
+# the forward's 16-byte chunks on 256-byte rows: from this many rows, and
+# while eight blocks (the kernel's __launch_bounds__) share an SM's
+# 233,472 shared bytes, 1 KB each kept
+_WIDE_MIN_ROWS = 2048
+_WIDE_SMEM = 233_472 // 8 - 1024
 
 Seed = Optional[Sequence[int]]
 
@@ -220,14 +226,15 @@ def edge_stage_bwd_reference(xl, xr, att, idx, mask, alpha, go, heads: int,
     return dg, dxr, datt.view(heads, ch), dkeep
 
 
-class BwdLaunch(NamedTuple):
-    """Launch configuration of the backward kernel (``edge_stage_bwd.cu``):
-    ``lanes`` per row, each holding ``nv`` chunks of ``chunk_bytes``;
-    ``rows`` per block; ``slots`` of each row staged in shared memory at a
-    time (K when every slot fits); ``smem_bytes`` of dynamic shared memory;
-    ``n_blocks`` in the grid; and ``head_lanes``, the lanes of a head when
-    the shape allows the kernel's fast path (one chunk a lane, no chunk
-    across two heads, a power-of-two lanes per head), else 0."""
+class EdgeLaunch(NamedTuple):
+    """Launch configuration of the edge-stage kernels
+    (``edge_stage_fwd.cu``, ``edge_stage_bwd.cu``): ``lanes`` per row,
+    each holding ``nv`` chunks of ``chunk_bytes``; ``rows`` per block;
+    ``slots`` of each row staged in shared memory at a time (K when every
+    slot fits); ``smem_bytes`` of dynamic shared memory; ``n_blocks`` in
+    the grid; and ``head_lanes``, the lanes of a head when the shape allows
+    the kernels' fast path (one chunk a lane, no chunk across two heads, a
+    power-of-two lanes per head), else 0."""
     lanes: int
     chunk_bytes: int
     nv: int
@@ -242,18 +249,17 @@ def _pow2(x: int) -> int:
     return 1 << max(0, (x - 1).bit_length())
 
 
-def bwd_launch_config(n: int, k: int, hc: int, heads: int,
-                      dtype) -> BwdLaunch:
-    """The backward kernel's launch configuration for an (N, K) table of
-    HC-wide rows with H heads in ``dtype``.  A row is cut into chunks of 16
-    bytes (rows of 512 bytes or more) or 8 over a power-of-two number of
-    lanes (at most 32); a block holds 128 threads' worth of rows; it
-    stages as many slots of each row as fit in :data:`SMEM_MAX` beside the
-    per-row alpha, dA/de and alpha*keep (K*H float32 each), the datt
-    reduction buffer (HC float32 a row) and the slots' source rows (K
-    int32).  The block count depends on N alone."""
+def _launch_config(name, n, k, hc, heads, dtype, row_bytes,
+                   wide=False) -> EdgeLaunch:
+    """The row-group launch configuration both edge-stage kernels share.
+    A row is cut into chunks of 16 bytes (rows of 512 bytes or more, or
+    any row when ``wide``) or 8 over a power-of-two number of lanes (at
+    most 32); a block holds 128 threads' worth of rows; it stages as many
+    slots of each row as fit in :data:`SMEM_MAX` beside
+    ``row_bytes(hc_pad)``, the kernel's other shared bytes a row.  The
+    block count depends on N alone."""
     size = 2 if dtype == torch.bfloat16 else 4
-    chunk_bytes = 16 if hc * size >= 512 else 8
+    chunk_bytes = 16 if wide or hc * size >= 512 else 8
     vec = chunk_bytes // size
     chunks = -(-hc // vec)
     lanes = min(32, _pow2(chunks))
@@ -263,20 +269,67 @@ def bwd_launch_config(n: int, k: int, hc: int, heads: int,
     if not (nv == 1 and (hc // heads) % vec == 0 and head_lanes >= 1
             and _pow2(head_lanes) == head_lanes):
         head_lanes = 0
-    rows = _BWD_THREADS // lanes
+    rows = _THREADS // lanes
     while True:
-        fixed = rows * ((3 * k * heads + hc_pad) * 4 + k * 4)
+        fixed = rows * row_bytes(hc_pad)
         slots = min(k, (SMEM_MAX - fixed) // (rows * hc_pad * size))
         if slots >= 1:
             break
         if rows == 1:
-            raise ValueError(f"edge_stage_bwd: K*H = {k * heads} slot-heads "
+            raise ValueError(f"{name}: K*H = {k * heads} slot-heads "
                              "do not fit in shared memory")
         rows //= 2
-    n_blocks = max(1, min(-(-n // _BWD_ROWS_PER_BLOCK), _BWD_MAX_BLOCKS))
-    return BwdLaunch(lanes, chunk_bytes, nv, rows, slots,
-                     fixed + rows * slots * hc_pad * size, n_blocks,
-                     head_lanes)
+    n_blocks = max(1, min(-(-n // _ROWS_PER_BLOCK), _MAX_BLOCKS))
+    return EdgeLaunch(lanes, chunk_bytes, nv, rows, slots,
+                      fixed + rows * slots * hc_pad * size, n_blocks,
+                      head_lanes)
+
+
+def fwd_launch_config(n: int, k: int, hc: int, heads: int,
+                      dtype) -> EdgeLaunch:
+    """The forward kernel's launch configuration for an (N, K) table of
+    HC-wide rows with H heads in ``dtype``: the staged slots share shared
+    memory with each row's logits and alpha*keep (K*H float32 each), its
+    valid slots' source rows and each slot's compact index (K int32
+    each).
+
+    Rows of 256 to 511 bytes (HC = 128 in bf16) take 16-byte chunks, two
+    rows a warp, where the table has :data:`_WIDE_MIN_ROWS` rows or more
+    and the 8-row blocks stage every slot with eight blocks an SM: that
+    halves the instructions a row's slot costs.  Smaller tables keep
+    8-byte chunks, whose shorter lane chain finishes a lone wave sooner,
+    and so do larger K, where the wide blocks' staging would halve the
+    blocks an SM (on an H100 the wide layout lost 4 % at K = 24 and 10 %
+    at 800 rows)."""
+    def config(wide):
+        return _launch_config("edge_stage_fwd", n, k, hc, heads, dtype,
+                              lambda hc_pad: 2 * k * heads * 4 + 2 * k * 4,
+                              wide)
+
+    narrow = config(False)
+    size = 2 if dtype == torch.bfloat16 else 4
+    if narrow.chunk_bytes == 16 or hc * size < 256 or n < _WIDE_MIN_ROWS:
+        return narrow
+    wide = config(True)
+    return wide if wide.slots == k and wide.smem_bytes <= _WIDE_SMEM \
+        else narrow
+
+
+def bwd_launch_config(n: int, k: int, hc: int, heads: int,
+                      dtype) -> EdgeLaunch:
+    """The backward kernel's launch configuration: the staged slots share
+    shared memory with each row's alpha, dA/de and alpha*keep (K*H float32
+    each), the datt reduction buffer (HC float32 a row) and the slots'
+    source rows (K int32)."""
+    return _launch_config("edge_stage_bwd", n, k, hc, heads, dtype,
+                          lambda hc_pad: (3 * k * heads + hc_pad) * 4 + k * 4)
+
+
+def _vec_io(cfg: EdgeLaunch, hc: int, *tensors) -> bool:
+    """Rows of whole chunks: hc * size a multiple of the chunk and every
+    base aligned to it."""
+    return (hc * tensors[0].element_size()) % cfg.chunk_bytes == 0 and all(
+        t.data_ptr() % cfg.chunk_bytes == 0 for t in tensors)
 
 
 def _fn(name, n_ptr_head, n_int, tail):
@@ -336,11 +389,14 @@ def edge_stage_fwd(xl, xr, att, idx, mask, heads: int,
                         device=xl.device)
     if n == 0:
         return out, alpha
+    cfg = fwd_launch_config(n, k, hc, heads, xl.dtype)
+    vec_io = _vec_io(cfg, hc, xl, xr, out)
     s0, s1, thresh, inv_keep = _hash_args(mode, seed, rate)
     fn = _fn("edge_stage_fwd", 6, 5, [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
         ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+        ctypes.c_void_p, ctypes.c_void_p, *[ctypes.c_int] * 9,
+        ctypes.c_void_p])
     with torch.cuda.device(xl.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(xl.data_ptr(), xr.data_ptr(), att.data_ptr(),
@@ -348,7 +404,9 @@ def edge_stage_fwd(xl, xr, att, idx, mask, heads: int,
                  0 if keep is None else keep.data_ptr(), n, xl.shape[0], k,
                  heads, hc, dtype_slope(negative_slope, xl.dtype),
                  int(xl.dtype == torch.bfloat16), MODES.index(mode), s0, s1,
-                 thresh, inv_keep, out.data_ptr(), alpha.data_ptr(), stream)
+                 thresh, inv_keep, out.data_ptr(), alpha.data_ptr(),
+                 *cfg[:7], int(vec_io), cfg.head_lanes if vec_io else 0,
+                 stream)
     if err:
         raise RuntimeError(f"edge_stage_fwd kernel launch failed: "
                            f"CUDA error {err}")
@@ -400,10 +458,7 @@ def edge_stage_bwd(xl, xr, att, idx, mask, alpha, go, heads: int,
     cfg = bwd_launch_config(n, k, hc, heads, xl.dtype)
     datt_part = torch.empty((cfg.n_blocks, hc), dtype=torch.float32,
                             device=dev)
-    # rows of whole chunks: hc * size a multiple of the chunk and every
-    # base aligned to it
-    vec_io = (hc * xl.element_size()) % cfg.chunk_bytes == 0 and all(
-        t.data_ptr() % cfg.chunk_bytes == 0 for t in (xl, xr, go, dg, dxr))
+    vec_io = _vec_io(cfg, hc, xl, xr, go, dg, dxr)
     s0, s1, thresh, inv_keep = _hash_args(mode, seed, rate)
     fn = _fn("edge_stage_bwd", 8, 5, [
         ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,

@@ -6,7 +6,7 @@ import pytest
 import torch
 
 from segger_tpu_torch.ops.postgather import (
-    SMEM_MAX, BwdLaunch, bwd_launch_config,
+    SMEM_MAX, EdgeLaunch, bwd_launch_config,
 )
 
 BF16, F32 = torch.bfloat16, torch.float32
@@ -83,7 +83,7 @@ def test_block_count_depends_on_n_alone(n):
 
 def test_many_slot_heads_shrink_the_block_or_raise():
     cfg = bwd_launch_config(700, 24, 512, 512, F32)
-    assert isinstance(cfg, BwdLaunch)
+    assert isinstance(cfg, EdgeLaunch)
     assert cfg.rows < 4 and cfg.smem_bytes <= SMEM_MAX and cfg.slots >= 1
     with pytest.raises(ValueError):
         bwd_launch_config(700, 100, 512, 512, F32)

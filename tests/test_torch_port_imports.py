@@ -96,7 +96,8 @@ def _imported_modules(path: Path):
 @pytest.mark.parametrize(
     "path",
     sorted((ROOT / "segger_tpu_torch").rglob("*.py"))
-    + [ROOT / "chip_smoke.py"],
+    + [ROOT / "chip_smoke.py", ROOT / "tools" / "bwd_device_ms.py",
+       ROOT / "tools" / "fwd_phase_ms.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_jax_imports(path):

@@ -9,7 +9,8 @@ import torch
 
 from segger_tpu_torch.ops.postgather import (
     bwd_launch_config, edge_stage_bwd, edge_stage_bwd_reference,
-    edge_stage_fwd, edge_stage_fwd_reference, prng_keep_reference,
+    edge_stage_fwd, edge_stage_fwd_reference, fwd_launch_config,
+    prng_keep_reference,
 )
 from segger_tpu_torch.ops.score import score_max, score_max_reference
 from segger_tpu_torch.ops.banded import (
@@ -241,10 +242,11 @@ def _check_backward(xl, xr, att, idx, mask, alpha, go, heads, mode, kw):
     assert (got[1][~mask.any(1)] == 0).all()
 
 
-def _staging_limit(hc, heads, dtype):
-    """The largest K whose slots the backward kernel stages all at once."""
+def _staging_limit(hc, heads, dtype, config=bwd_launch_config):
+    """The largest K whose slots the kernel of ``config`` (the backward's
+    by default) stages all at once."""
     k = 1
-    while bwd_launch_config(700, k + 1, hc, heads, dtype).slots == k + 1:
+    while config(700, k + 1, hc, heads, dtype).slots == k + 1:
         k += 1
     return k
 
@@ -334,6 +336,109 @@ def test_backward_kernel_repeats_bit_for_bit(cuda, mode, rate):
     assert (a[3] is None) == (mode != "keep")
     if mode == "keep":
         assert torch.equal(a[3], b[3])
+
+
+# ---------------------------------------------------------------------
+# the forward's row groups: staging limit, ragged blocks, unaligned rows,
+# repeatability (K1, K2, K4 forward)
+# ---------------------------------------------------------------------
+def _check_forward(xl, xr, att, idx, mask, heads, kw):
+    """The kernel against its plain version on one input: out at the
+    forward's tolerance, alpha at 1e-5, both exactly 0 on rows without a
+    valid slot."""
+    out, alpha = edge_stage_fwd(xl, xr, att, idx, mask, heads, **kw)
+    ref_out, ref_alpha = edge_stage_fwd_reference(xl, xr, att, idx, mask,
+                                                  heads, **kw)
+    torch.cuda.synchronize()
+    tol = 1e-5 if xl.dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(alpha, ref_alpha, atol=1e-5, rtol=0)
+    empty = ~mask.any(1)
+    assert (out[empty] == 0).all() and (alpha[empty] == 0).all()
+
+
+@pytest.mark.parametrize("mode,rate", [MODES[0], MODES[2], MODES[4]])
+@pytest.mark.parametrize("above", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_kernel_at_and_above_staging_limit(cuda, dtype, above, mode,
+                                                   rate):
+    """HC = 512: K at the forward's staging limit (every slot staged once)
+    and one above it (slots in chunks, the output pass staging them
+    again)."""
+    hc, heads = 512, 8
+    k = _staging_limit(hc, heads, dtype, fwd_launch_config) + above
+    assert (fwd_launch_config(700, k, hc, heads, dtype).slots < k) == above
+    gen = torch.Generator().manual_seed(k * 19 + above)
+    n, n_src = 700, 500
+    xl, xr, att = _features(n, n_src, hc, heads, dtype, gen, cuda)
+    # att at the 1/sqrt(C) scale of an initialized layer: with unit att,
+    # 64-channel logits reach 40, where their f32 rounding alone (a few
+    # 1e-6 in alpha, within its tolerance) moves an output that two slots
+    # cancel by more than 1e-5
+    att = att * (hc // heads) ** -0.5
+    idx, mask = _table(n, k, n_src, gen, cuda)
+    kw = _dropout(mode, rate, n, k, heads, gen, cuda)
+    _check_forward(xl, xr, att, idx, mask, heads, kw)
+
+
+@pytest.mark.parametrize("mode,rate", [MODES[0], MODES[2], MODES[4]])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_kernel_ragged_blocks(cuda, dtype, mode, rate):
+    """N not a multiple of the rows a block takes, more rows than one pass
+    of the grid covers, and rows without a valid slot at the end of each
+    block's rows and of the table."""
+    hc, heads, k = 128, 2, 12
+    n, n_src = 40 * 1024 + 37, 3_000
+    cfg = fwd_launch_config(n, k, hc, heads, dtype)
+    assert n % cfg.rows and n > cfg.rows * cfg.n_blocks
+    gen = torch.Generator().manual_seed(31)
+    xl, xr, att = _features(n, n_src, hc, heads, dtype, gen, cuda)
+    idx, mask = _table(n, k, n_src, gen, "cpu")
+    rows = torch.arange(n)
+    mask[(rows % cfg.rows == cfg.rows - 1) | (rows >= n - 10)] = False
+    idx, mask = idx.to(cuda), mask.to(cuda)
+    kw = _dropout(mode, rate, n, k, heads, gen, cuda)
+    _check_forward(xl, xr, att, idx, mask, heads, kw)
+
+
+@pytest.mark.parametrize("n", [700, 3_000])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("hc,heads", [(36, 3), (128, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_kernel_unaligned_rows(cuda, dtype, hc, heads, offset, n):
+    """Rows that do not start on 16 bytes: HC = 36 (72 or 144 bytes), and
+    tensors one element past an aligned base, so the kernel moves rows
+    element by element; at 3,000 rows (K = 12) in bf16 in 16-byte
+    chunks, two rows a warp."""
+    gen = torch.Generator().manual_seed(hc + offset + n)
+    n_src, k = 500, 13 if n < 2048 else 12
+
+    def table(rows, fill):
+        flat = torch.empty(rows * hc + offset, dtype=dtype, device=cuda)
+        t = flat[offset:].view(rows, hc)
+        t.copy_(fill.to(dtype))
+        return t
+
+    xl = table(n_src, torch.randn(n_src, hc, generator=gen))
+    xr = table(n, torch.randn(n, hc, generator=gen))
+    att = torch.randn(heads, hc // heads, generator=gen).to(dtype).to(cuda)
+    idx, mask = _table(n, k, n_src, gen, cuda)
+    kw = _dropout("prng", 0.2, n, k, heads, gen, cuda)
+    _check_forward(xl, xr, att, idx, mask, heads, kw)
+
+
+@pytest.mark.parametrize("mode,rate", [("nokeep", 0.0), ("prng", 0.2),
+                                       ("keep", 0.0)])
+def test_forward_kernel_repeats_bit_for_bit(cuda, mode, rate):
+    gen = torch.Generator().manual_seed(5)
+    n, n_src, k, hc, heads = 30_000, 20_000, 12, 128, 2
+    xl, xr, att = _features(n, n_src, hc, heads, torch.bfloat16, gen, cuda)
+    idx, mask = _table(n, k, n_src, gen, cuda)
+    kw = _dropout(mode, rate, n, k, heads, gen, cuda)
+    out_a, alpha_a = edge_stage_fwd(xl, xr, att, idx, mask, heads, **kw)
+    out_b, alpha_b = edge_stage_fwd(xl, xr, att, idx, mask, heads, **kw)
+    assert torch.equal(out_a, out_b) and torch.equal(alpha_a, alpha_b)
 
 
 # ---------------------------------------------------------------------

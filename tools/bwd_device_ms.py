@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
-"""Device time of the edge-stage backward kernel (``edge_stage_bwd.cu``:
-K3 and the keep-tensor mode of K4) at ``chip_smoke.py``'s phase-2 shapes,
-for the kernels of this checkout or of another one, measured by this
-checkout's ``chip_smoke.check_edge_stage_bwd`` (checked against the plain
+"""Device time of the edge-stage kernels at ``chip_smoke.py``'s phase-2
+shapes, for the kernels of this checkout or of another one, measured by
+this checkout's ``chip_smoke`` checks (each checked against its plain
 version, then ``device_ms`` from torch.profiler and the event-timed
 ``ms``).  Needs one CUDA device.
 
-    python3 tools/bwd_device_ms.py                  # this checkout
+    python3 tools/bwd_device_ms.py                  # the backward, here
     python3 tools/bwd_device_ms.py --root OTHER     # OTHER's kernels
+    python3 tools/bwd_device_ms.py --kernel fwd     # the forward
+    python3 tools/bwd_device_ms.py --kernel fwd --max-blocks 8192
 
-To compare two versions on one card, run both in one job, in turns:
-parent, change, change, parent.  Prints the card's name and power limit,
-then one JSON line per shape and mode.  The training-tile shapes (12,000 x
-8, 800 x 12, 640 x 24 over 12,800 source rows) are random tables of the
-tile's segment sizes, not the tile's own tables.
+``--kernel bwd`` (the default) times ``edge_stage_bwd.cu`` (K3 and the
+keep-tensor mode of K4); ``--kernel fwd`` times ``edge_stage_fwd.cu``
+(K1 no dropout, K2 hashed dropout, K4's keep-tensor forward).  To compare
+two versions on one card, run both in one job, in turns: parent, change,
+change, parent.  Prints the card's name and power limit, then one JSON
+line per shape and mode.  The tile shapes are random tables of the
+segment sizes of the first training tile (12,000 x 8, 800 x 12, 640 x 24
+over 12,800 source rows) and, for the forward, of the first predict tile
+(5,040 x 4, 8,064 x 8, 3,024 x 12, 832 x 24 over 16,128), not the tiles'
+own tables.
 """
 from __future__ import annotations
 
@@ -24,12 +30,38 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
+TRAIN_TILE = (12_800, ((12_000, 8), (800, 12), (640, 24)))
+PREDICT_TILE = (16_128, ((5_040, 4), (8_064, 8), (3_024, 12), (832, 24)))
+
+
+def runs_of(kernel, n_bench, bf16, f32):
+    """(n, n_src, k, dtype, mode) of every measurement of ``kernel``."""
+    if kernel == "bwd":
+        runs = [(n_bench, n_bench, k, dt, mode)
+                for k, dts in ((8, (bf16,)), (12, (bf16, f32)), (24, (bf16,)))
+                for dt in dts for mode in ("prng", "nokeep")]
+        runs.append((n_bench, n_bench, 12, bf16, "keep"))
+        n_src, segs = TRAIN_TILE
+        return runs + [(n, n_src, k, bf16, "prng") for n, k in segs]
+    runs = [(n_bench, n_bench, k, dt, mode)
+            for k, dts in ((4, (bf16,)), (8, (bf16,)), (12, (bf16, f32)),
+                           (24, (bf16,)))
+            for dt in dts for mode in ("nokeep", "prng")]
+    runs.append((n_bench, n_bench, 12, bf16, "keep"))
+    n_src, segs = PREDICT_TILE
+    runs += [(n, n_src, k, bf16, "nokeep") for n, k in segs]
+    n_src, segs = TRAIN_TILE
+    return runs + [(n, n_src, k, bf16, "prng") for n, k in segs]
 
 
 def main(argv) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE),
                     help="checkout whose segger_tpu_torch is measured")
+    ap.add_argument("--kernel", choices=("bwd", "fwd"), default="bwd")
+    ap.add_argument("--max-blocks", type=int, default=None,
+                    help="the kernels' grid cap (ops/postgather.py "
+                         "_MAX_BLOCKS), for a block-count sweep")
     ap.add_argument("--tag", default="")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -45,21 +77,21 @@ def main(argv) -> int:
         print("bwd_device_ms: no CUDA device", file=sys.stderr)
         return 2
     import segger_tpu_torch
-    print(smoke.gpu_line(), "|", segger_tpu_torch.__file__)
+    from segger_tpu_torch.ops import postgather
+    if args.max_blocks:
+        postgather._MAX_BLOCKS = args.max_blocks
+    print(smoke.gpu_line(), "|", segger_tpu_torch.__file__, "| max blocks",
+          getattr(postgather, "_MAX_BLOCKS", None))
+    check = (smoke.check_edge_stage_bwd if args.kernel == "bwd"
+             else smoke.check_edge_stage)
     rng = np.random.default_rng(smoke.SEED)
-    bf16, f32 = torch.bfloat16, torch.float32
-    runs = [(smoke.N_BENCH, smoke.N_BENCH, k, dt, mode)
-            for k, dts in ((8, (bf16,)), (12, (bf16, f32)), (24, (bf16,)))
-            for dt in dts for mode in ("prng", "nokeep")]
-    runs.append((smoke.N_BENCH, smoke.N_BENCH, 12, bf16, "keep"))
-    runs += [(n, 12_800, k, bf16, "prng")
-             for n, k in ((12_000, 8), (800, 12), (640, 24))]
-    for n, n_src, k, dt, mode in runs:
+    for n, n_src, k, dt, mode in runs_of(args.kernel, smoke.N_BENCH,
+                                         torch.bfloat16, torch.float32):
         idx, mask = smoke.random_table(n, k, n_src, rng)
-        r = smoke.check_edge_stage_bwd(idx, mask, n_src, dt, rng, mode=mode)
-        print(json.dumps({"tag": args.tag, **{key: r[key] for key in (
-            "mode", "n", "k", "dtype", "device_ms", "ms", "bound_ms",
-            "max_abs_err")}}))
+        r = check(idx, mask, n_src, dt, rng, mode=mode)
+        print(json.dumps({"tag": args.tag, "kernel": args.kernel, **{
+            key: r[key] for key in ("mode", "n", "k", "dtype", "device_ms",
+                                    "ms", "bound_ms", "max_abs_err")}}))
     return 0
 
 
