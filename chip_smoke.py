@@ -23,7 +23,8 @@ Phases (any failure exits non-zero; nothing is caught):
    to show it repeats bit for bit), K4 (the keep-tensor mode of both),
    K5 (candidate scoring), K6 (the fused attention, at N = 50,000 and
    the tiles' widths) and K7 (the banded edge stage, on the slide-wide
-   strip-major tt table that ``band_graph`` bands);
+   strip-major tt table that ``band_graph`` bands), each of K6 and K7
+   with the device memory its call takes beyond its output;
 3. drive ``SeggerTrainer.predict`` at the full ``TrainConfig()`` width
    (bf16, 4 GATv2 layers, 64 x 2 heads) over a synthetic slide of 200k
    transcripts and 10k cells with random weights from a seed, counting
@@ -462,7 +463,12 @@ def check_attention(idx, mask, xl, xr, att, bias, heads, lo=None):
     name, dt = op.__name__, xl.dtype
     n, k = idx.shape
     launches = op.launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     out = op(*args)
+    # device memory the call took beyond what it returns (scratch, copies)
+    extra_bytes = (torch.cuda.max_memory_allocated()
+                   - torch.cuda.memory_allocated())
     if op.launches != launches + 1:
         raise AssertionError(f"{name}: {op.launches - launches} launches")
     ref = plain(*args)
@@ -494,7 +500,8 @@ def check_attention(idx, mask, xl, xr, att, bias, heads, lo=None):
             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": b_ms,
             "bound_by": b_by, "bytes": n_bytes, "valid_slots": n_valid,
-            "empty_rows": int(empty.sum())}, out
+            "empty_rows": int(empty.sum()),
+            "extra_bytes": extra_bytes}, out
 
 
 def strip_major_table(graph):
@@ -1041,6 +1048,9 @@ def main(argv) -> int:
 
     sc_tile = [r for k, w, r in checks if k == "K5"
                and w.startswith("tile")][0]
+    # device memory a slide-table call takes beyond its output
+    slide_extra = {k: r["extra_bytes"] for k, w, r in checks
+                   if w == "slide"}
     pg = "segger_tpu/ops/pallas/postgather.py"
     src = "segger_tpu_torch/csrc/"
     kernels = [
@@ -1079,13 +1089,15 @@ def main(argv) -> int:
          "replaces": "segger_tpu/ops/pallas/gatv2_attn.py:57",
          "launches": fwd_counts["attn"],
          "path": "forward-only path, slide-wide table",
-         **summary("K6", "slide"), "library_ms": None},
+         **summary("K6", "slide"), "extra_bytes": slide_extra["K6"],
+         "library_ms": None},
         {"name": "banded_edge_stage", "route": "cuda",
          "source": src + "attn_fwd.cu",
          "replaces": "segger_tpu/ops/pallas/banded.py:112",
          "launches": fwd_counts["banded"],
          "path": "forward-only path, slide-wide banded table",
-         **summary("K7", "slide"), "library_ms": None},
+         **summary("K7", "slide"), "extra_bytes": slide_extra["K7"],
+         "library_ms": None},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,8 @@
 // Shared pieces of the GATv2 edge-stage kernels (edge_stage_fwd.cu,
 // edge_stage_bwd.cu, attn_fwd.cu): type conversions with the TPU kernels'
 // rounding, warp reductions, the dropout keep multiplier of the three
-// modes, and the row groups of the forward and backward kernels (chunks of
-// a row, their arithmetic in the feature type, cp.async staging).
+// modes, and the row groups of the three kernels (chunks of a row, their
+// arithmetic in the feature type, cp.async staging).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -219,6 +219,32 @@ __device__ __forceinline__ Chunk<W> add_t(const Chunk<W>& a,
       const __nv_bfloat162 r =
           __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&a.w[i]),
                   *reinterpret_cast<const __nv_bfloat162*>(&b.w[i]));
+      c.w[i] = *reinterpret_cast<const uint32_t*>(&r);
+    }
+  }
+  return c;
+}
+
+// s = p > 0 ? p : slope*p from p and sp = round_T(slope*p), word by word:
+// the maximum of the two for slope <= 1 (use_max), else the minimum, one
+// instruction for two bf16 channels.  That equals p > 0 ? p : slope*p for
+// every p, up to the sign of a zero s when the slope is negative, and but
+// for p = -inf with slope 0 (where the plain versions give NaN).
+template <typename T, int W>
+__device__ __forceinline__ Chunk<W> leaky_t(const Chunk<W>& p,
+                                            const Chunk<W>& sp, bool use_max) {
+  Chunk<W> c;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    if constexpr (sizeof(T) == 4) {
+      const float a = __uint_as_float(p.w[i]), b = __uint_as_float(sp.w[i]);
+      c.w[i] = __float_as_uint(use_max ? fmaxf(a, b) : fminf(a, b));
+    } else {
+      const __nv_bfloat162 a =
+          *reinterpret_cast<const __nv_bfloat162*>(&p.w[i]);
+      const __nv_bfloat162 b =
+          *reinterpret_cast<const __nv_bfloat162*>(&sp.w[i]);
+      const __nv_bfloat162 r = use_max ? __hmax2(a, b) : __hmin2(a, b);
       c.w[i] = *reinterpret_cast<const uint32_t*>(&r);
     }
   }

@@ -94,29 +94,6 @@ namespace {
 
 using namespace sgt;
 
-// s = p > 0 ? p : slope*p from p and sp = round_T(slope*p), word by word
-// (see the note at the top)
-template <typename T, int W>
-__device__ __forceinline__ Chunk<W> leaky_t(const Chunk<W>& p,
-                                            const Chunk<W>& sp, bool use_max) {
-  Chunk<W> c;
-#pragma unroll
-  for (int i = 0; i < W; ++i) {
-    if constexpr (sizeof(T) == 4) {
-      const float a = __uint_as_float(p.w[i]), b = __uint_as_float(sp.w[i]);
-      c.w[i] = __float_as_uint(use_max ? fmaxf(a, b) : fminf(a, b));
-    } else {
-      const __nv_bfloat162 a =
-          *reinterpret_cast<const __nv_bfloat162*>(&p.w[i]);
-      const __nv_bfloat162 b =
-          *reinterpret_cast<const __nv_bfloat162*>(&sp.w[i]);
-      const __nv_bfloat162 r = use_max ? __hmax2(a, b) : __hmin2(a, b);
-      c.w[i] = *reinterpret_cast<const uint32_t*>(&r);
-    }
-  }
-  return c;
-}
-
 // The softmax of one row's logits, held in compact order in lg_c (the
 // c-th valid slot's H logits at c*H): z = e - max, ez = exp(z), alpha =
 // ez / max(sum ez, 1e-30), as the TPU kernel, whose masked slots (z near

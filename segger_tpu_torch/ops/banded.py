@@ -11,11 +11,12 @@ the global source of slot j of row i is ``lo[i // BLOCK] +
 idx_local[i, j]``.  Over those sources the op computes the function of
 ``ops/gatv2_attn.py::gatv2_attention`` in float32.
 
-The TPU kernel copied each block's whole window into VMEM, which is why
-it needed ``N_src >= WINDOW``; the CUDA kernel reads only the rows that
-valid slots name, through L2 (a window is 2 MiB at HC = 128, above the
-227 KB of shared memory a block can have), so it needs no padding of
-``xl``.  Its scratch was float32, so the op takes float32 only.
+The TPU kernel copied each block's whole window into a float32 VMEM
+scratch, which is why it needed ``N_src >= WINDOW``; the CUDA kernel
+stages only the rows that valid slots name, read through L2 (a window is
+2 MiB at HC = 128, above the 227 KB of shared memory a block can have),
+so it needs no padding of ``xl``.  As the TPU kernel's window was
+float32, the op takes float32 only.
 
 :func:`banded_edge_stage` launches the kernel for CUDA tensors (every
 launch adds one to ``banded_edge_stage.launches``) and raises if it
@@ -29,10 +30,11 @@ import numpy as np
 import torch
 
 from .gatv2_attn import (
-    _F, _I, _P, check, gatv2_attention_reference, load_fn,
+    _F, _I, _P, attn_launch_config, check, gatv2_attention_reference,
+    load_fn,
 )
 from .padded_csr import PaddedCSR
-from .postgather import on_cuda
+from .postgather import _vec_io, on_cuda
 
 BLOCK = 256
 WINDOW = 4096
@@ -132,16 +134,17 @@ def banded_edge_stage(xl, xr, lo, idx_local, mask, att, bias, heads: int,
     out = torch.empty((n_pad, hc), dtype=xl.dtype, device=xl.device)
     if n_pad == 0:
         return out
-    scratch = torch.empty((n_pad, K_BAND, heads), dtype=torch.float32,
-                          device=xl.device)
+    cfg = attn_launch_config(n_pad, K_BAND, hc, heads, xl.dtype)
+    vec_io = _vec_io(cfg, hc, xl, xr, out)
     fn = load_fn("sgt_banded_edge_stage",
-                 [_P] * 7 + [_I] * 4 + [_F, _P, _P, _P])
+                 [_P] * 7 + [_I] * 4 + [_F, _P] + [_I] * 9 + [_P])
     with torch.cuda.device(xl.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(xl.data_ptr(), xr.data_ptr(), att.data_ptr(),
                  bias.data_ptr(), lo.data_ptr(), idx_local.data_ptr(),
                  mask.data_ptr(), n_pad, xl.shape[0], heads, hc,
-                 float(slope), scratch.data_ptr(), out.data_ptr(), stream)
+                 float(slope), out.data_ptr(), *cfg[:7], int(vec_io),
+                 cfg.head_lanes if vec_io else 0, stream)
     if err:
         raise RuntimeError(f"banded_edge_stage kernel launch failed: "
                            f"CUDA error {err}")

@@ -33,41 +33,75 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .postgather import MAX_HC, dtype_slope, on_cuda
+from .postgather import (
+    MAX_HC, SMEM_8_BLOCKS, EdgeLaunch, _launch_config, _vec_io, dtype_slope,
+    on_cuda,
+)
 
 _NEG_INF = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def lanes_per_row(hc: int) -> int:
-    """Channels each of a warp's 32 lanes holds in the kernels: the
-    smallest power of two with ``32 * vpl >= hc``."""
-    vpl = 1
-    while 32 * vpl < hc:
-        vpl *= 2
-    return vpl
+def attn_launch_config(n: int, k: int, hc: int, heads: int,
+                       dtype) -> EdgeLaunch:
+    """The attention kernel's launch configuration (``attn_fwd.cu``, both
+    entry points) for an (N, K) table of HC-wide rows with H heads in
+    ``dtype``, cut as the edge-stage kernels cut a row
+    (``postgather._launch_config``): the staged slots share shared memory
+    with each row's logits, which become alpha (K*H float32), and its
+    valid slots' source rows (K int32).  There is no alpha output and no
+    keep multiplier.  The row's layout (lanes, chunk bytes, chunks a lane,
+    lanes a head) follows HC, H and ``dtype`` alone, never N or K: rows
+    of 256 bytes or more take 16-byte chunks, shorter rows the shared cut.
+    So :func:`head_logits` repeats the kernel's summation order from the
+    row's shape.
+
+    A block stages at most as many slots of each row as keep eight blocks
+    on an SM (:data:`SMEM_8_BLOCKS`): every slot up to K = 12 at HC = 128,
+    13 of the slide table's 16 in f32.  A row with more valid slots takes
+    them in chunks.  On an H100 the slide table (about 5 valid slots a
+    row) took 20 % longer with all 16 staged (six blocks an SM) than with
+    8, and K = 12 took 15-20 % longer with 8 staged than with all 12."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    cfg = _launch_config("gatv2_attention", n, k, hc, heads, dtype,
+                         lambda hc_pad: k * heads * 4 + k * 4,
+                         wide=hc * size >= 256)
+    per_slot = cfg.rows * cfg.lanes * cfg.nv * cfg.chunk_bytes
+    fixed = cfg.smem_bytes - cfg.slots * per_slot
+    slots = min(cfg.slots, max(1, (SMEM_8_BLOCKS - fixed) // per_slot))
+    return cfg._replace(slots=slots, smem_bytes=fixed + slots * per_slot)
 
 
-def head_logits(prod: torch.Tensor, heads: int) -> torch.Tensor:
+def head_logits(prod: torch.Tensor, heads: int, lanes: int,
+                vec: int) -> torch.Tensor:
     """(N, K, HC) float32 products -> (N, K, H) float32 per-head sums,
-    added in the kernels' order: each lane's channels in turn, then a
-    butterfly over the 32 lanes.  In bfloat16 the sum is rounded once and
-    then exponentiated, so a different order could move a logit by one
-    bf16 step (up to 6 % in exp at |e| ~ 10); this fixed order keeps the
-    kernel and its plain version on the same bf16 logit."""
+    added in the kernel's order for a row of ``lanes`` lanes holding
+    chunks of ``vec`` channels (:func:`attn_launch_config`): channel c
+    lies in chunk ``c // (lanes * vec)`` of lane ``(c // vec) % lanes``;
+    each lane adds its channels of the head to 0, chunk by chunk and
+    channel by channel, then a butterfly over the lanes (offsets
+    ``lanes/2, ..., 1``) adds the lanes' sums.  In bfloat16 the sum is
+    rounded once and then exponentiated, so a different order could move
+    a logit by one bf16 step (up to 6 % in exp at |e| ~ 10); this fixed
+    order keeps the kernel and its plain version on the same bf16 logit.
+    """
     n, k, hc = prod.shape
-    vpl = lanes_per_row(hc)
+    span = lanes * vec
+    nv = -(-hc // span)
     ch = hc // heads
-    p = F.pad(prod, (0, 32 * vpl - hc)).view(n, k, 32, vpl)
-    head = (torch.arange(32 * vpl, device=prod.device) // ch).view(32, vpl)
+    p = F.pad(prod, (0, nv * span - hc)).view(n, k, nv, lanes, vec)
+    c = torch.arange(nv * span, device=prod.device).view(nv, lanes, vec)
+    head = torch.where(c < hc, c // ch, -1)
     out = []
     for h in range(heads):
-        ph = torch.where(head == h, p, 0.0)
+        # (N, K, lanes, nv * vec): each lane's channels in its order
+        ph = torch.where(head == h, p, 0.0).transpose(2, 3).reshape(
+            n, k, lanes, nv * vec)
         part = ph[..., 0]
-        for v in range(1, vpl):
-            part = part + ph[..., v]
-        w = 32
+        for i in range(1, nv * vec):
+            part = part + ph[..., i]
+        w = lanes
         while w > 1:
             w //= 2
             part = part[..., :w] + part[..., w:2 * w]
@@ -119,7 +153,9 @@ def gatv2_attention_reference(xl, xr, idx, mask, att, bias, heads: int,
     slope = torch.tensor(negative_slope, dtype=dt, device=xl.device)
     s = torch.where(s > 0, s, slope * s)
     prod = (s.view(n, k, heads, ch) * att).view(n, k, hc)   # rounded to dt
-    logits = head_logits(prod.float(), heads).to(dt)        # (N, K, H)
+    cfg = attn_launch_config(1, 1, hc, heads, dt)
+    logits = head_logits(prod.float(), heads, cfg.lanes,
+                         cfg.chunk_bytes // xl.element_size()).to(dt)
     m = mask[..., None]
     z = torch.where(m, logits, _NEG_INF)
     z = z - z.amax(dim=1, keepdim=True)
@@ -162,19 +198,18 @@ def gatv2_attention(xl, xr, idx, mask, att, bias, heads: int,
     out = torch.empty((n, hc), dtype=xl.dtype, device=xl.device)
     if n == 0:
         return out
-    # per-slot, per-head logits, then softmax weights, of each row
-    scratch = torch.empty((n, k, heads), dtype=torch.float32,
-                          device=xl.device)
+    cfg = attn_launch_config(n, k, hc, heads, xl.dtype)
+    vec_io = _vec_io(cfg, hc, xl, xr, out)
     fn = load_fn("sgt_gatv2_attention",
-                 [_P] * 6 + [_I] * 5 + [_F, _I, _P, _P, _P])
+                 [_P] * 6 + [_I] * 5 + [_F, _I, _P] + [_I] * 9 + [_P])
     with torch.cuda.device(xl.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(xl.data_ptr(), xr.data_ptr(), att.data_ptr(),
                  bias.data_ptr(), idx.data_ptr(), mask.data_ptr(), n,
                  xl.shape[0], k, heads, hc,
                  dtype_slope(negative_slope, xl.dtype),
-                 int(xl.dtype == torch.bfloat16), scratch.data_ptr(),
-                 out.data_ptr(), stream)
+                 int(xl.dtype == torch.bfloat16), out.data_ptr(), *cfg[:7],
+                 int(vec_io), cfg.head_lanes if vec_io else 0, stream)
     if err:
         raise RuntimeError(f"gatv2_attention kernel launch failed: "
                            f"CUDA error {err}")

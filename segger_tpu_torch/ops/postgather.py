@@ -43,11 +43,12 @@ _THREADS = 128           # threads a block of either edge-stage kernel
 # result, repeat
 _ROWS_PER_BLOCK = 4
 _MAX_BLOCKS = 4096
+# dynamic shared bytes a block may use while eight blocks (the forward
+# kernels' __launch_bounds__) share an SM's 233,472, 1 KB each kept
+SMEM_8_BLOCKS = 233_472 // 8 - 1024
 # the forward's 16-byte chunks on 256-byte rows: from this many rows, and
-# while eight blocks (the kernel's __launch_bounds__) share an SM's
-# 233,472 shared bytes, 1 KB each kept
+# while eight blocks share an SM
 _WIDE_MIN_ROWS = 2048
-_WIDE_SMEM = 233_472 // 8 - 1024
 
 Seed = Optional[Sequence[int]]
 
@@ -311,7 +312,7 @@ def fwd_launch_config(n: int, k: int, hc: int, heads: int,
     if narrow.chunk_bytes == 16 or hc * size < 256 or n < _WIDE_MIN_ROWS:
         return narrow
     wide = config(True)
-    return wide if wide.slots == k and wide.smem_bytes <= _WIDE_SMEM \
+    return wide if wide.slots == k and wide.smem_bytes <= SMEM_8_BLOCKS \
         else narrow
 
 

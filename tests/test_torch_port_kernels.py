@@ -17,7 +17,7 @@ from segger_tpu_torch.ops.banded import (
     band_graph, banded_edge_stage, banded_edge_stage_reference,
 )
 from segger_tpu_torch.ops.gatv2_attn import (
-    gatv2_attention, gatv2_attention_reference,
+    attn_launch_config, gatv2_attention, gatv2_attention_reference,
 )
 
 pytestmark = pytest.mark.gpu
@@ -524,3 +524,112 @@ def test_attention_launch_counters_and_checks(cuda):
     with pytest.raises(TypeError):           # the banded op is float32
         banded_edge_stage(xc.bfloat16(), xc.bfloat16(), lc, ic, mc,
                           ac.bfloat16(), bc, 2)
+
+
+def _check_attention(xl, xr, idx, mask, att, bias, heads):
+    """K6 against its plain version on one input, at phase 2c's
+    tolerance; rows without a valid slot exactly the bias.  Returns the
+    kernel's output."""
+    out = gatv2_attention(xl, xr, idx, mask, att, bias, heads)
+    ref = gatv2_attention_reference(xl, xr, idx, mask, att, bias, heads)
+    torch.cuda.synchronize()
+    tol = 1e-5 if xl.dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    empty = ~mask.any(1)
+    assert torch.equal(out[empty],
+                       bias.to(xl.dtype).expand(int(empty.sum()), -1))
+    return out
+
+
+@pytest.mark.parametrize("above", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_at_and_above_staging_limit(cuda, dtype, above):
+    """HC = 512: K at the attention kernel's staging limit (every slot
+    staged once) and one above it (slots in chunks, the output pass
+    staging them again)."""
+    hc, heads = 512, 8
+    k = _staging_limit(hc, heads, dtype, attn_launch_config) + above
+    assert (attn_launch_config(700, k, hc, heads, dtype).slots < k) == above
+    gen = torch.Generator().manual_seed(k * 23 + above)
+    n, n_src = 700, 500
+    xl, xr, att = _features(n, n_src, hc, heads, dtype, gen, cuda)
+    att = att * (hc // heads) ** -0.5       # an initialized layer's scale
+    bias = torch.randn(hc, generator=gen).to(cuda)
+    idx, mask = _table(n, k, n_src, gen, cuda)
+    _check_attention(xl, xr, idx, mask, att, bias, heads)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_ragged_blocks(cuda, dtype):
+    """N not a multiple of the rows a block takes, more rows than one pass
+    of the grid covers, and rows without a valid slot at the end of each
+    block's rows and of the table."""
+    hc, heads, k = 128, 2, 12
+    n, n_src = 40 * 1024 + 37, 3_000
+    cfg = attn_launch_config(n, k, hc, heads, dtype)
+    assert n % cfg.rows and n > cfg.rows * cfg.n_blocks
+    gen = torch.Generator().manual_seed(37)
+    xl, xr, att = _features(n, n_src, hc, heads, dtype, gen, cuda)
+    bias = torch.randn(hc, generator=gen).to(cuda)
+    idx, mask = _table(n, k, n_src, gen, "cpu")
+    rows = torch.arange(n)
+    mask[(rows % cfg.rows == cfg.rows - 1) | (rows >= n - 10)] = False
+    _check_attention(xl, xr, idx.to(cuda), mask.to(cuda), att, bias, heads)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("hc,heads", [(36, 3), (128, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_unaligned_rows(cuda, dtype, hc, heads, offset):
+    """Rows that do not start on a chunk: HC = 36 (72 or 144 bytes), and
+    tensors one element past an aligned base, so the kernel moves rows
+    element by element on its general path."""
+    gen = torch.Generator().manual_seed(hc + offset + 41)
+    n, n_src, k = 3_000, 500, 13
+
+    def table(rows, fill):
+        flat = torch.empty(rows * hc + offset, dtype=dtype, device=cuda)
+        t = flat[offset:].view(rows, hc)
+        t.copy_(fill.to(dtype))
+        return t
+
+    xl = table(n_src, torch.randn(n_src, hc, generator=gen))
+    xr = table(n, torch.randn(n, hc, generator=gen))
+    att = torch.randn(heads, hc // heads, generator=gen).to(dtype).to(cuda)
+    bias = torch.randn(hc, generator=gen).to(cuda)
+    idx, mask = _table(n, k, n_src, gen, cuda)
+    _check_attention(xl, xr, idx, mask, att, bias, heads)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_repeats_bit_for_bit(cuda, dtype):
+    gen = torch.Generator().manual_seed(43)
+    n, n_src, k, hc, heads = 30_000, 20_000, 12, 128, 2
+    xl, xr, att = _features(n, n_src, hc, heads, dtype, gen, cuda)
+    bias = torch.randn(hc, generator=gen).to(cuda)
+    idx, mask = _table(n, k, n_src, gen, cuda)
+    a = gatv2_attention(xl, xr, idx, mask, att, bias, heads)
+    b = gatv2_attention(xl, xr, idx, mask, att, bias, heads)
+    assert torch.equal(a, b)
+
+
+def test_banded_kernel_repeats_and_equals_attention(cuda):
+    """K7 twice and K6 on the same strip-major table: K7 bit-equal over
+    two runs and within 1e-6 of K6, which reads the same sources."""
+    n, hc, heads = 20_000, 128, 2
+    csr = _strip_major_table(n, seed=47)
+    lo, idxl, mask, ok = band_graph(csr, n_src=n)
+    assert ok
+    gen = torch.Generator().manual_seed(47)
+    n_pad = idxl.shape[0]
+    xl, xr, att = _features(n_pad, n, hc, heads, torch.float32, gen, cuda)
+    bias = torch.randn(hc, generator=gen).to(cuda)
+    args = (xl, xr, torch.from_numpy(lo).to(cuda),
+            torch.from_numpy(idxl).to(cuda), torch.from_numpy(mask).to(cuda),
+            att, bias, heads)
+    a, b = banded_edge_stage(*args), banded_edge_stage(*args)
+    k6 = gatv2_attention(xl, xr[:n], torch.from_numpy(csr.idx).to(cuda),
+                         torch.from_numpy(csr.mask).to(cuda), att, bias,
+                         heads)
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a[:n], k6, atol=1e-6, rtol=1e-6)

@@ -1,25 +1,29 @@
 #!/usr/bin/env python3
-"""Device time of the edge-stage kernels at ``chip_smoke.py``'s phase-2
-shapes, for the kernels of this checkout or of another one, measured by
-this checkout's ``chip_smoke`` checks (each checked against its plain
-version, then ``device_ms`` from torch.profiler and the event-timed
-``ms``).  Needs one CUDA device.
+"""Device time of the edge-stage and attention kernels at
+``chip_smoke.py``'s phase-2 shapes, for the kernels of this checkout or of
+another one, measured by this checkout's ``chip_smoke`` checks (each
+checked against its plain version, then ``device_ms`` from torch.profiler
+and the event-timed ``ms``).  Needs one CUDA device.
 
     python3 tools/bwd_device_ms.py                  # the backward, here
     python3 tools/bwd_device_ms.py --root OTHER     # OTHER's kernels
     python3 tools/bwd_device_ms.py --kernel fwd     # the forward
     python3 tools/bwd_device_ms.py --kernel fwd --max-blocks 8192
+    python3 tools/bwd_device_ms.py --kernel attn    # K6 and K7
 
 ``--kernel bwd`` (the default) times ``edge_stage_bwd.cu`` (K3 and the
 keep-tensor mode of K4); ``--kernel fwd`` times ``edge_stage_fwd.cu``
-(K1 no dropout, K2 hashed dropout, K4's keep-tensor forward).  To compare
-two versions on one card, run both in one job, in turns: parent, change,
-change, parent.  Prints the card's name and power limit, then one JSON
-line per shape and mode.  The tile shapes are random tables of the
-segment sizes of the first training tile (12,000 x 8, 800 x 12, 640 x 24
-over 12,800 source rows) and, for the forward, of the first predict tile
-(5,040 x 4, 8,064 x 8, 3,024 x 12, 832 x 24 over 16,128), not the tiles'
-own tables.
+(K1 no dropout, K2 hashed dropout, K4's keep-tensor forward);
+``--kernel attn`` times ``attn_fwd.cu``: K6 at phase 2c's shapes (N =
+50,000, K 4/8/12/24, bf16 and f32), then K6 on the synthetic slide's
+strip-major tt table and K7 on its banded form (f32, random features).
+To compare two versions on one card, run both in one job, in turns:
+parent, change, change, parent.  Prints the card's name and power limit,
+then one JSON line per shape and mode.  The tile shapes are random tables
+of the segment sizes of the first training tile (12,000 x 8, 800 x 12,
+640 x 24 over 12,800 source rows) and, for the forward, of the first
+predict tile (5,040 x 4, 8,064 x 8, 3,024 x 12, 832 x 24 over 16,128),
+not the tiles' own tables.
 """
 from __future__ import annotations
 
@@ -54,11 +58,38 @@ def runs_of(kernel, n_bench, bf16, f32):
     return runs + [(n, n_src, k, bf16, "prng") for n, k in segs]
 
 
+def attn_records(smoke, rng, heads=2, hc=128):
+    """(kernel, where, record) of K6 at phase 2c's shapes, then of K6 and
+    K7 on the slide-wide strip-major table, random features."""
+    import torch
+
+    for k in (4, 8, 12, 24):
+        idx, mask = smoke.random_table(smoke.N_BENCH, k, smoke.N_BENCH, rng)
+        for dt in (torch.bfloat16, torch.float32):
+            xl, xr, att = smoke._features(idx, smoke.N_BENCH, dt, rng, heads,
+                                          hc)[:3]
+            bias = torch.randn(hc, device="cuda")
+            yield "K6", "N=50000", smoke.check_attention(
+                idx, mask, xl, xr, att, bias, heads)[0]
+    graph = smoke.synthetic_slide()
+    _, csr, banded, _, _ = smoke.strip_major_table(graph)
+    idx, mask = (torch.from_numpy(a).cuda() for a in (csr.idx, csr.mask))
+    lo, idxl, bmask = (torch.from_numpy(a).cuda() for a in banded)
+    xl, xr, att = smoke._features(idx, graph.n_tx, torch.float32, rng, heads,
+                                  hc)[:3]
+    bias = torch.randn(hc, device="cuda")
+    xr_pad = torch.cat([xr, xr.new_zeros(idxl.shape[0] - graph.n_tx, hc)])
+    yield "K6", "slide", smoke.check_attention(idx, mask, xl, xr, att, bias,
+                                               heads)[0]
+    yield "K7", "slide", smoke.check_attention(idxl, bmask, xl, xr_pad, att,
+                                               bias, heads, lo)[0]
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE),
                     help="checkout whose segger_tpu_torch is measured")
-    ap.add_argument("--kernel", choices=("bwd", "fwd"), default="bwd")
+    ap.add_argument("--kernel", choices=("bwd", "fwd", "attn"), default="bwd")
     ap.add_argument("--max-blocks", type=int, default=None,
                     help="the kernels' grid cap (ops/postgather.py "
                          "_MAX_BLOCKS), for a block-count sweep")
@@ -82,9 +113,18 @@ def main(argv) -> int:
         postgather._MAX_BLOCKS = args.max_blocks
     print(smoke.gpu_line(), "|", segger_tpu_torch.__file__, "| max blocks",
           getattr(postgather, "_MAX_BLOCKS", None))
+    rng = np.random.default_rng(smoke.SEED)
+    if args.kernel == "attn":
+        for kernel, where, r in attn_records(smoke, rng):
+            print(json.dumps({"tag": args.tag, "kernel": kernel,
+                              "where": where, **{
+                                  key: r[key] for key in (
+                                      "n", "k", "dtype", "device_ms", "ms",
+                                      "bound_ms", "max_abs_err",
+                                      "extra_bytes")}}))
+        return 0
     check = (smoke.check_edge_stage_bwd if args.kernel == "bwd"
              else smoke.check_edge_stage)
-    rng = np.random.default_rng(smoke.SEED)
     for n, n_src, k, dt, mode in runs_of(args.kernel, smoke.N_BENCH,
                                          torch.bfloat16, torch.float32):
         idx, mask = smoke.random_table(n, k, n_src, rng)
