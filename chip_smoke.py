@@ -392,6 +392,7 @@ def check_score(idx, mask, n_bd, rng, f=64, dtype=None):
     einsum + max as the library yardstick."""
     import torch
 
+    from segger_tpu_torch.ops import score as score_op
     from segger_tpu_torch.ops.score import score_max, score_max_reference
 
     dtype = dtype or torch.bfloat16
@@ -431,7 +432,13 @@ def check_score(idx, mask, n_bd, rng, f=64, dtype=None):
     n_rows = int(idx[mask].unique().numel())
     n_bytes = (n_rows + n) * f * size + idx.numel() * 5 + n * 8
     b_ms, b_by = bound_ms(n_bytes, n_valid * f * 2)
+    # the layout the kernel took (None for a checkout from before
+    # score_launch_config, timed by tools/bwd_device_ms.py --root)
+    config = getattr(score_op, "score_launch_config", None)
+    layout = config and config(n, k, f, dtype, tx.data_ptr(),
+                               bd.data_ptr())._asdict()
     return {"n": n, "k": k, "dtype": str(dtype).split(".")[-1],
+            "layout": layout,
             "max_abs_err": err, "tol": "slots equal, max atol 1e-5",
             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_device_ms": library_dev_ms,
@@ -571,10 +578,21 @@ def profile_predict(trainer, specs, plans, path: Path):
                   if e.device_type == DeviceType.CUDA
                   and not e.is_user_annotation) / 1e3
     table = events.table(sort_by="self_device_time_total", row_limit=30)
+    # the pass's K1 and K5 launches, which the table may rank below its
+    # cut
+    kernels = {}
+    for tag, name in (("K1", "edge_stage_fwd_kernel"),
+                      ("K5", "score_max_kernel")):
+        es = [e for e in events if e.device_type == DeviceType.CUDA
+              and name in e.key]
+        kernels[tag] = (sum(e.self_device_time_total for e in es) / 1e3,
+                        sum(e.count for e in es))
     line = (f"profile: host extraction {extract:.3f} s for {len(plans)} "
             f"batches; warm predict wall {wall:.3f} s (runs {walls}); "
             f"device busy {busy_ms:.3f} ms, idle share "
-            f"{1 - busy_ms / 1e3 / wall:.4f}")
+            f"{1 - busy_ms / 1e3 / wall:.4f}; " + ", ".join(
+                f"{tag} {ms:.4f} ms in {n} launches"
+                for tag, (ms, n) in kernels.items()))
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(f"{line}\n{table}\n")
     print(line)
@@ -1083,7 +1101,8 @@ def main(argv) -> int:
          "replaces": "segger_tpu/ops/pallas/score.py:60",
          "launches": predict_counts["score"], **summary("K5", "tile"),
          "library_ms": sc_tile["library_ms"],
-         "library_device_ms": sc_tile["library_device_ms"]},
+         "library_device_ms": sc_tile["library_device_ms"],
+         "layout": sc_tile["layout"]},
         {"name": "gatv2_attention", "route": "cuda",
          "source": src + "attn_fwd.cu",
          "replaces": "segger_tpu/ops/pallas/gatv2_attn.py:57",

@@ -89,6 +89,108 @@ def test_score_kernel_takes_first_max(cuda):
     assert slot.item() == 2 and mx.item() == 4.0
 
 
+def _score_inputs(n, k, f, n_bd, dtype, gen, cuda, p_valid=0.6,
+                  misaligned=False):
+    """Random rows and a candidate table whose valid slots fall anywhere
+    (holes in the mask), idx partly out of [0, n_bd)."""
+    def rows(m):
+        x = torch.randn(m, f, generator=gen).to(dtype)
+        if not misaligned:
+            return x.to(cuda)
+        buf = torch.empty(m * f + 1, dtype=dtype, device=cuda)
+        view = buf[1:].view(m, f)          # one element off the chunk
+        view.copy_(x)
+        return view
+
+    idx = torch.randint(-3, n_bd + 3, (n, k), generator=gen,
+                        dtype=torch.int32)
+    mask = torch.rand(n, k, generator=gen) < p_valid
+    return rows(n), rows(n_bd), idx.to(cuda), mask.to(cuda)
+
+
+def _assert_score_matches(tx, bd, idx, mask):
+    mx, slot = score_max(tx, bd, idx, mask)
+    ref_mx, ref_slot = score_max_reference(tx, bd, idx, mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(slot, ref_slot, atol=0, rtol=0)
+    torch.testing.assert_close(mx, ref_mx, atol=1e-4, rtol=1e-5)
+    return mx, slot
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k,f", [
+    (1, 4, 64),            # one row
+    (1_001, 4, 64),        # N not a multiple of the rows a block
+    (777, 3, 33),          # general path: rows not whole chunks
+    (500, 24, 64),         # K above the slot batch and the lanes a row
+    (300, 64, 1),          # one lane a row, 64 rounds
+    (257, 9, 512),         # four chunks a lane (f32), two slots a batch
+])
+def test_score_kernel_holes_and_clipped_idx(cuda, n, k, f, dtype):
+    gen = torch.Generator().manual_seed(n + k + f)
+    _assert_score_matches(*_score_inputs(n, k, f, 70, dtype, gen, cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f,k", [(64, 4), (48, 24)])
+def test_score_kernel_misaligned_view(cuda, f, k, dtype):
+    """Tables one element off the chunk boundary take the element path
+    in the same layout."""
+    gen = torch.Generator().manual_seed(f * k)
+    tx, bd, idx, mask = _score_inputs(600, k, f, 90, dtype, gen, cuda,
+                                      misaligned=True)
+    assert tx.data_ptr() % 8 and bd.data_ptr() % 8
+    mx, slot = _assert_score_matches(tx, bd, idx, mask)
+    al = _assert_score_matches(tx.clone(), bd.clone(), idx, mask)
+    assert torch.equal(slot, al[1]) and torch.equal(mx, al[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [4, 13])
+def test_score_kernel_ties_take_the_first_valid_slot(cuda, k, dtype):
+    """Slots naming the same candidate row tie exactly; the first valid
+    one wins, and a masked slot before it that names that row too does
+    not."""
+    gen = torch.Generator().manual_seed(k)
+    n, f = 400, 64
+    tx, bd, _, _ = _score_inputs(n, k, f, 50, dtype, gen, cuda)
+    idx = torch.randint(0, 3, (n, k), generator=gen,
+                        dtype=torch.int32).to(cuda)   # many repeats
+    mask = (torch.rand(n, k, generator=gen) < 0.7).to(cuda)
+    mask[:, 0] = False                         # a masked slot first
+    idx[:, 0] = idx[:, k - 1]
+    mx, slot = _assert_score_matches(tx, bd, idx, mask)
+    has = mask.any(1)
+    assert (slot[has] > 0).all()
+    picked = idx[has].gather(1, slot[has, None].long())[:, 0]
+    for j in range(1, k):
+        earlier = (j < slot[has]) & mask[has, j]
+        assert not (earlier & (idx[has, j] == picked)).any()
+
+
+def test_score_kernel_empty_rows_and_masked_sentinel(cuda):
+    """All-masked rows give (-1e30, -1); a valid slot whose dot lies below
+    -1e30 loses to the first masked slot's -1e30."""
+    tx = torch.full((3, 4), 1e20, device=cuda)
+    bd = torch.stack([torch.full((4,), -1e20), torch.ones(4)]).to(cuda)
+    idx = torch.tensor([[0, 1, 0], [0, 0, 1], [1, 1, 1]], dtype=torch.int32,
+                       device=cuda)
+    mask = torch.tensor([[True, False, False], [True, False, True],
+                         [False, False, False]], device=cuda)
+    mx, slot = _assert_score_matches(tx, bd, idx, mask)
+    assert slot.tolist() == [1, 2, -1]
+    assert torch.equal(mx, torch.tensor([-1e30, 4e20, -1e30], device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_score_kernel_runs_repeat_bit_for_bit(cuda, dtype):
+    gen = torch.Generator().manual_seed(5)
+    args = _score_inputs(16_128, 4, 64, 832, dtype, gen, cuda)
+    a, b = score_max(*args), score_max(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
 def test_launch_counters_count_kernel_launches_only(cuda):
     gen = torch.Generator().manual_seed(0)
     x = torch.randn(50, 64, generator=gen)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Device time of the edge-stage and attention kernels at
+"""Device time of the edge-stage, attention and scoring kernels at
 ``chip_smoke.py``'s phase-2 shapes, for the kernels of this checkout or of
 another one, measured by this checkout's ``chip_smoke`` checks (each
 checked against its plain version, then ``device_ms`` from torch.profiler
@@ -10,13 +10,18 @@ and the event-timed ``ms``).  Needs one CUDA device.
     python3 tools/bwd_device_ms.py --kernel fwd     # the forward
     python3 tools/bwd_device_ms.py --kernel fwd --max-blocks 8192
     python3 tools/bwd_device_ms.py --kernel attn    # K6 and K7
+    python3 tools/bwd_device_ms.py --kernel score   # K5
 
 ``--kernel bwd`` (the default) times ``edge_stage_bwd.cu`` (K3 and the
 keep-tensor mode of K4); ``--kernel fwd`` times ``edge_stage_fwd.cu``
 (K1 no dropout, K2 hashed dropout, K4's keep-tensor forward);
 ``--kernel attn`` times ``attn_fwd.cu``: K6 at phase 2c's shapes (N =
 50,000, K 4/8/12/24, bf16 and f32), then K6 on the synthetic slide's
-strip-major tt table and K7 on its banded form (f32, random features).
+strip-major tt table and K7 on its banded form (f32, random features);
+``--kernel score`` times ``score.cu`` (K5) at F = 64 (``out_channels``):
+N = 50,000 over 2,500 candidate rows at K 4 / 8 / 24 in bf16 and K = 4 in
+f32, then a random table of the predict tile's candidate size (16,128 x 4
+over 832 rows), each with the library call's ``library_device_ms``.
 To compare two versions on one card, run both in one job, in turns:
 parent, change, change, parent.  Prints the card's name and power limit,
 then one JSON line per shape and mode.  The tile shapes are random tables
@@ -36,6 +41,11 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[1]
 TRAIN_TILE = (12_800, ((12_000, 8), (800, 12), (640, 24)))
 PREDICT_TILE = (16_128, ((5_040, 4), (8_064, 8), (3_024, 12), (832, 24)))
+# (n, k, n_bd, dtype name) of the K5 timings: phase 2's N = 50,000 table
+# over 2,500 cells, then the predict tile's candidate table
+SCORE_RUNS = ((50_000, 4, 2_500, "bfloat16"), (50_000, 8, 2_500, "bfloat16"),
+              (50_000, 24, 2_500, "bfloat16"), (50_000, 4, 2_500, "float32"),
+              (16_128, 4, 832, "bfloat16"))
 
 
 def runs_of(kernel, n_bench, bf16, f32):
@@ -89,7 +99,8 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE),
                     help="checkout whose segger_tpu_torch is measured")
-    ap.add_argument("--kernel", choices=("bwd", "fwd", "attn"), default="bwd")
+    ap.add_argument("--kernel", choices=("bwd", "fwd", "attn", "score"),
+                    default="bwd")
     ap.add_argument("--max-blocks", type=int, default=None,
                     help="the kernels' grid cap (ops/postgather.py "
                          "_MAX_BLOCKS), for a block-count sweep")
@@ -122,6 +133,17 @@ def main(argv) -> int:
                                       "n", "k", "dtype", "device_ms", "ms",
                                       "bound_ms", "max_abs_err",
                                       "extra_bytes")}}))
+        return 0
+    if args.kernel == "score":
+        for n, k, n_bd, dt in SCORE_RUNS:
+            idx, mask = smoke.random_table(n, k, n_bd, rng)
+            r = smoke.check_score(idx, mask, n_bd, rng, f=64,
+                                  dtype=getattr(torch, dt))
+            print(json.dumps({"tag": args.tag, "kernel": "K5", **{
+                key: r[key] for key in (
+                    "n", "k", "dtype", "device_ms", "ms", "bound_ms",
+                    "max_abs_err", "library_device_ms", "valid_slots",
+                    "layout")}}))
         return 0
     check = (smoke.check_edge_stage_bwd if args.kernel == "bwd"
              else smoke.check_edge_stage)
