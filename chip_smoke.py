@@ -28,12 +28,22 @@ Phases (any failure exits non-zero; nothing is caught):
 3. drive ``SeggerTrainer.predict`` at the full ``TrainConfig()`` width
    (bf16, 4 GATv2 layers, 64 x 2 heads) over a synthetic slide of 200k
    transcripts and 10k cells with random weights from a seed, counting
-   kernel launches, and run the same predict on the CPU (plain versions,
-   same weights) to compare assignments;
+   kernel launches (a captured step's replays add the launches recorded
+   at its capture) and captures, and run the same predict on the CPU
+   (plain versions, same weights) to compare assignments;
 4. drive ``SeggerTrainer.fit`` for 2 epochs at ``TrainConfig()`` on the
-   same slide's margin tiles, counting launches, with per-epoch losses,
-   step wall times and peak memory; then the edge-stage op in keep mode
-   (K4's own path) forward and backward on a training tile;
+   same slide's margin tiles, every step a replayed CUDA graph, counting
+   launches and captures, with per-epoch losses, step wall times and
+   peak memory; then the edge-stage op in keep mode (K4's own path)
+   forward and backward on a training tile;
+4b. run the first epoch's training steps again on the card, eagerly
+   (``SeggerTrainer.train_step``) from the same initial weights: the
+   first step's loss must equal the graphed one, and every step's agree
+   within ``GRAPH_STEP_RTOL``;
+4c. fit again from the same initial weights with ``scan_steps =
+   SCAN_STEPS`` (loss rows read back four steps at a time): every step's
+   loss within ``GRAPH_STEP_RTOL`` of phase 4's, with both fits' epoch
+   walls;
 5. run the first 4 training steps again on the CPU (same init, same
    generators, plain versions) and compare the per-step losses;
 6. the forward-only path in float32: the first tt conv of the
@@ -67,7 +77,9 @@ SIM_ATOL = 2e-2                   # GPU vs CPU similarity
 DROPOUT = 0.2                     # the encoder's attention dropout
 TRAIN_EPOCHS = 2
 CPU_STEPS = 4                     # training steps repeated on the CPU
+SCAN_STEPS = 4                    # phase 4c's TrainConfig.scan_steps
 FIRST_STEP_RTOL = 1e-2            # GPU vs CPU loss of the first step
+GRAPH_STEP_RTOL = 1e-3            # graphed vs eager loss of each step
 MEAN_STEP_RTOL = 2e-2             # GPU vs CPU mean loss of the CPU steps
 ROOT = Path(__file__).resolve().parent
 
@@ -208,11 +220,15 @@ def random_table(n, k, n_src, rng, empty_frac=0.02):
 def _dropout_args(mode, rng, n, k, heads, dtype):
     """The edge stage's dropout keywords for ``mode``: hashed from two
     seed words at the training rate, or an (n, k, heads) keep tensor."""
+    import numpy as np
     import torch
 
     if mode == "prng":
+        # the words in device memory, where the main path's kernels read
+        # them
         w = rng.integers(0, 2**32, 2)
-        return {"seed": (int(w[0]), int(w[1])), "rate": DROPOUT}
+        return {"seed": torch.from_numpy(w.astype(np.uint32).view(
+            np.int32)).cuda(), "rate": DROPOUT}
     if mode == "keep":
         gen = torch.Generator(device="cuda").manual_seed(
             int(rng.integers(1e9)))
@@ -600,8 +616,13 @@ def profile_predict(trainer, specs, plans, path: Path):
 
 
 def profile_train_step(trainer, plan, path: Path):
-    """One training step under torch.profiler: device time by kernel and
-    the device's busy share of the step's wall time."""
+    """One compiled training step (the staging of its batch and random
+    numbers, the graph's replay and the read-back of its loss row) under
+    torch.profiler: device time by kernel and the device's busy share of
+    the step's wall time.  Then the device time of one optimizer step of
+    a capturable Adam, foreach and fused, over the trainer's parameters
+    and gradients."""
+    import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -609,24 +630,75 @@ def profile_train_step(trainer, plan, path: Path):
     _, gen = trainer.epoch_streams(0)
     weights = trainer.weights(0, TRAIN_EPOCHS)
     batch = trainer._build_batch(plan, cache=False)
-    trainer.train_step(batch.to("cuda"), gen, weights)       # warm
+
+    def one_step():
+        step = trainer._step("train", batch)
+        trainer._stage(step, batch, gen, weights)
+        return trainer._run("train", step).tolist()
+
+    one_step()                           # warm; the fit captured the graph
     torch.cuda.synchronize()
+    # where a step's wall goes: the host staging, queueing the replay,
+    # then waiting for the loss row (the device finishing the graph)
+    parts = []
+    for _ in range(10):
+        t = [time.perf_counter()]
+        step = trainer._step("train", batch)
+        trainer._stage(step, batch, gen, weights)
+        t.append(time.perf_counter())
+        row = trainer._run("train", step)
+        t.append(time.perf_counter())
+        row.tolist()
+        t.append(time.perf_counter())
+        parts.append(np.diff(t) * 1e3)
+    stage_ms, queue_ms, wait_ms = np.median(parts, axis=0)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train_step(batch.to("cuda"), gen, weights)
+        one_step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
-    busy_ms = sum(e.self_device_time_total for e in events
-                  if e.device_type == DeviceType.CUDA
-                  and not e.is_user_annotation) / 1e3
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
     table = events.table(sort_by="self_device_time_total", row_limit=30)
-    line = (f"train profile: one step (H2D copy included) wall "
-            f"{wall * 1e3:.3f} ms, device busy {busy_ms:.3f} ms, idle "
-            f"share {1 - busy_ms / 1e3 / wall:.4f}")
+    step_line = (
+        f"train profile: one graphed step (staging and read-back included) "
+        f"wall {wall * 1e3:.3f} ms, device busy {busy_ms:.3f} ms in "
+        f"{sum(e.count for e in device)} device events, idle share "
+        f"{1 - busy_ms / 1e3 / wall:.4f}; unprofiled, medians of 10 "
+        f"steps: staging {stage_ms:.3f} ms, queueing the replay "
+        f"{queue_ms:.3f} ms, waiting for the loss row {wait_ms:.3f} ms")
+    print(step_line)
+    # the optimizer step alone, on the gradients of one eager step: the
+    # device time of every activity 20 warm steps launch, over 20
+    trainer.train_step(batch.to("cuda"), gen, weights)
+    params = [p for g in trainer.optimizer.param_groups
+              for p in g["params"]]
+    adam = {}
+    for name, fused in (("capturable foreach", False),
+                        ("capturable fused", True)):
+        opt = torch.optim.Adam(params, lr=trainer.cfg.learning_rate,
+                               capturable=True, fused=fused)
+        for _ in range(3):
+            opt.step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                opt.step()
+            torch.cuda.synchronize()
+        acts = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not e.is_user_annotation]
+        adam[name] = (sum(e.self_device_time_total for e in acts) / 20e3,
+                      sum(e.count for e in acts) / 20)
+    line = ("Adam device time a step: " + ", ".join(
+        f"{name} {ms:.4f} ms in {n:g} device events"
+        for name, (ms, n) in adam.items())
+        + f" (the trainer's: fused={trainer.optimizer.defaults['fused']})")
     path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_text(f"{line}\n{table}\n")
+    path.write_text(f"{step_line}\n{line}\n{table}\n")
     print(line)
     print(f"profile table in {path}")
 
@@ -847,15 +919,21 @@ def main(argv) -> int:
     wall = time.perf_counter() - t0
     predict_counts = read_counts()
     n_tiles = sum(len(s) for s, _ in plans)
+    caps = dict(trainer.captures)
     print(f"predict: {n_tiles} tiles, {len(plans)} batches, "
           f"{got['row_index'].size} transcripts, "
           f"{int((got['cell_encoding'] >= 0).sum())} assigned, "
-          f"wall {wall:.3f} s, max_memory_allocated "
+          f"wall {wall:.3f} s (the capture included), max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
-          f"launches {predict_counts}")
-    want = {"fwd": {"nokeep": n_tiles * n_layers * len(segs), "prng": 0,
+          f"captures {caps}, launches {predict_counts}")
+    if caps != {"train": 0, "eval": 0, "predict": 1}:
+        raise AssertionError(f"predict captures {caps}, expected one")
+    # the replays, and the warm-up of the one capture (one batch of
+    # tiles_per_step tiles); the capture itself launches nothing
+    n_run = n_tiles + cfg.tiles_per_step
+    want = {"fwd": {"nokeep": n_run * n_layers * len(segs), "prng": 0,
                     "keep": 0},
-            "bwd": {"nokeep": 0, "prng": 0, "keep": 0}, "score": n_tiles,
+            "bwd": {"nokeep": 0, "prng": 0, "keep": 0}, "score": n_run,
             "attn": 0, "banded": 0}
     if predict_counts != want:
         raise AssertionError(f"launches {predict_counts}, expected {want}")
@@ -891,8 +969,12 @@ def main(argv) -> int:
     trainer.init()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    caps0 = dict(trainer.captures)
     t0 = time.perf_counter()
-    history = trainer.fit(fit_specs, max_epochs=TRAIN_EPOCHS)
+    ends = [t0]      # when each epoch (its validation included) ended
+    history = trainer.fit(fit_specs, max_epochs=TRAIN_EPOCHS,
+                          on_epoch_end=lambda *_: ends.append(
+                              time.perf_counter()))
     torch.cuda.synchronize()
     fit_wall = time.perf_counter() - t0
     fit_counts = read_counts()
@@ -901,18 +983,29 @@ def main(argv) -> int:
         print("fit epoch " + json.dumps(rec))
     steps = trainer.step_log
     step_s = [sec for _, _, sec in steps]
+    fit_caps = {k: n - caps0[k] for k, n in trainer.captures.items()}
+    by_epoch = [float(np.median([sec for ep, _, sec in steps[1:]
+                                 if ep == e])) for e in range(TRAIN_EPOCHS)]
     print(f"fit: {TRAIN_EPOCHS} epochs, {len(steps)} steps, wall "
-          f"{fit_wall:.3f} s, step wall first {step_s[0]:.4f} s, median "
-          f"of the rest {float(np.median(step_s[1:])):.4f} s (all "
+          f"{fit_wall:.3f} s, step wall first (with its capture) "
+          f"{step_s[0]:.4f} s, median of the rest "
+          f"{float(np.median(step_s[1:])):.4f} s, by epoch {by_epoch} s "
+          f"(all "
           f"{[round(x, 4) for x in step_s]}), max_memory_allocated "
-          f"{fit_peak:.1f} MiB, launches {fit_counts}")
-    per_step = n_layers * len(tsegs)
+          f"{fit_peak:.1f} MiB, captures {fit_caps}, launches {fit_counts}")
+    if not (fit_caps["predict"] == 0 and 1 <= fit_caps["train"]
+            <= TRAIN_EPOCHS and fit_caps["eval"] == 1):
+        raise AssertionError(f"fit captures {fit_caps}")
+    per_step = cfg.tiles_per_step * n_layers * len(tsegs)
     # a val batch launches (lo + hi, or one tt segment) + tb per layer
-    per_val = n_layers * (3 if val_plans[0][1].n_lo else 2)
+    per_val = cfg.tiles_per_step * n_layers * (
+        3 if val_plans[0][1].n_lo else 2)
     n_val = TRAIN_EPOCHS * len(val_plans)
-    want = {"fwd": {"nokeep": n_val * per_val,
-                    "prng": len(steps) * per_step, "keep": 0},
-            "bwd": {"nokeep": 0, "prng": len(steps) * per_step, "keep": 0},
+    # the replays and each capture's warm-up step
+    n_train = len(steps) + fit_caps["train"]
+    want = {"fwd": {"nokeep": (n_val + fit_caps["eval"]) * per_val,
+                    "prng": n_train * per_step, "keep": 0},
+            "bwd": {"nokeep": 0, "prng": n_train * per_step, "keep": 0},
             "score": 0, "attn": 0, "banded": 0}
     if fit_counts != want:
         raise AssertionError(f"fit launches {fit_counts}, expected {want}")
@@ -929,6 +1022,58 @@ def main(argv) -> int:
     if keep_counts["fwd"]["keep"] != n_keep or \
             keep_counts["bwd"]["keep"] != n_keep:
         raise AssertionError(f"keep-mode launches {keep_counts}")
+
+    # -- phase 4b: the first epoch again on the card, eagerly, from the
+    # same initial weights and generators
+    eager = SeggerTrainer(graph, cfg)
+    eager.init()
+    e_train, _ = eager.split_tiles(fit_specs)
+    erng, gen = eager.epoch_streams(0)
+    weights = eager.weights(0, TRAIN_EPOCHS)
+    reset_counts()
+    eager_loss, eager_s = [], []
+    for p in eager._batch_plans(e_train, shuffle=True, rng=erng):
+        batch = eager._build_batch(p, cache=False)
+        t0 = time.perf_counter()
+        eager_loss.append(eager.train_step(batch.to("cuda"), gen,
+                                           weights)[0])
+        eager_s.append(time.perf_counter() - t0)
+    eager_counts = read_counts()
+    del eager
+    graph_loss = [rec[0] for ep, rec, _ in steps if ep == 0]
+    rel = [abs(g - e) / abs(e) for g, e in zip(graph_loss, eager_loss)]
+    print(f"eager epoch on the card: {len(eager_loss)} steps, step wall "
+          f"median {float(np.median(eager_s[1:])):.4f} s; losses graphed "
+          f"{graph_loss} eager {eager_loss}; first step equal: "
+          f"{graph_loss[0] == eager_loss[0]}; worst relative step diff "
+          f"{max(rel):.3e} (need <= {GRAPH_STEP_RTOL}); launches "
+          f"{eager_counts}")
+    if len(eager_loss) != len(graph_loss) or graph_loss[0] != eager_loss[0] \
+            or max(rel) > GRAPH_STEP_RTOL:
+        raise AssertionError("graphed and eager training disagree")
+    if eager_counts["fwd"]["prng"] != len(eager_loss) * per_step or \
+            eager_counts["bwd"]["prng"] != len(eager_loss) * per_step:
+        raise AssertionError(f"eager epoch launches {eager_counts}")
+
+    # -- phase 4c: the same fit from the same initial weights with the
+    # loss rows read back SCAN_STEPS steps at a time
+    scan = SeggerTrainer(graph, dataclasses.replace(cfg,
+                                                    scan_steps=SCAN_STEPS))
+    scan.init()
+    s_ends = [time.perf_counter()]
+    scan.fit(fit_specs, max_epochs=TRAIN_EPOCHS,
+             on_epoch_end=lambda *_: s_ends.append(time.perf_counter()))
+    scan_loss = [rec[0] for _, rec, _ in scan.step_log]
+    del scan
+    fit_loss = [rec[0] for _, rec, _ in steps]
+    rel = [abs(a - b) / abs(b) for a, b in zip(scan_loss, fit_loss)]
+    print(f"scan_steps={SCAN_STEPS} fit: {len(scan_loss)} steps, epoch "
+          f"walls {np.diff(s_ends).tolist()} s against scan_steps=0's "
+          f"{np.diff(ends).tolist()} s (validation included); worst "
+          f"relative step diff to scan_steps=0 {max(rel):.3e} (need <= "
+          f"{GRAPH_STEP_RTOL})")
+    if len(scan_loss) != len(fit_loss) or max(rel) > GRAPH_STEP_RTOL:
+        raise AssertionError("scan_steps changed the training losses")
 
     # -- phase 5: the first training steps again on the CPU
     cpu = SeggerTrainer(graph, cfg, device="cpu")

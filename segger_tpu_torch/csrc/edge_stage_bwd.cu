@@ -101,9 +101,11 @@ edge_stage_bwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
                       const T* __restrict__ keep, const T* __restrict__ go,
                       int n, int n_src, int k, int heads, int hc, int lanes,
                       int rows, int slots, int vec_io, int mode,
-                      float slope_t, float slope, KeepHash hash,
+                      float slope_t, float slope, KeepHash hash_arg,
+                      const uint32_t* __restrict__ seed,
                       T* __restrict__ dg, T* __restrict__ dxr,
                       float* __restrict__ datt_part, T* __restrict__ dkeep) {
+  const KeepHash hash = with_seed(hash_arg, seed, mode);
   constexpr int VEC = W * kPerWord<T>;
   constexpr int E = NV * VEC;  // channels a lane holds
   constexpr bool FAST = LPH > 0;
@@ -349,6 +351,7 @@ struct Args {
       vec_io, mode;
   float slope_t, slope;
   KeepHash hash;
+  const void* seed;
   void *dg, *dxr, *datt_part, *dkeep;
   cudaStream_t stream;
 };
@@ -363,7 +366,8 @@ int launch(const Args& a) {
       (const T*)a.xl, (const T*)a.xr, (const T*)a.att, (const int32_t*)a.idx,
       (const uint8_t*)a.mask, (const float*)a.alpha, (const T*)a.keep,
       (const T*)a.go, a.n, a.n_src, a.k, a.heads, a.hc, a.lanes, a.rows,
-      a.slots, a.vec_io, a.mode, a.slope_t, a.slope, a.hash, (T*)a.dg,
+      a.slots, a.vec_io, a.mode, a.slope_t, a.slope, a.hash,
+      (const uint32_t*)a.seed, (T*)a.dg,
       (T*)a.dxr, (float*)a.datt_part, (T*)a.dkeep);
   return (int)cudaGetLastError();
 }
@@ -393,9 +397,10 @@ int launch_nv(const Args& a, int nv, int head_lanes) {
 // xl (n_src, hc), xr (n, hc), att (hc,), go (n, hc) in the feature type
 // (is_bf16: bfloat16, else float32); idx (n, k) int32; mask (n, k) bool;
 // alpha (n, k, heads) float32 from the forward; keep (n, k, heads) feature
-// type (mode 2 only); seed words, thresh and inv_keep as the forward's
-// (mode 1 only).  slope_t is the slope rounded to the feature type (for s),
-// slope the float32 slope (for the leaky derivative).  Outputs: dg (n, k,
+// type (mode 2 only); the seed words' device address, thresh and inv_keep
+// as the forward's (mode 1 only).  slope_t is the slope rounded to the
+// feature type (for s), slope the float32 slope (for the leaky
+// derivative).  Outputs: dg (n, k,
 // hc) and dxr (n, hc) in the feature type, datt_part (n_blocks, hc) float32,
 // dkeep (n, k, heads) feature type (mode 2 only).  The launch
 // configuration (lanes per row, chunk bytes 8 or 16, chunks per lane nv in
@@ -410,13 +415,13 @@ extern "C" int sgt_edge_stage_bwd(
     const void* xl, const void* xr, const void* att, const void* idx,
     const void* mask, const void* alpha, const void* keep, const void* go,
     int n, int n_src, int k, int heads, int hc, float slope_t, float slope,
-    int is_bf16, int mode, uint32_t seed0, uint32_t seed1, uint32_t thresh,
+    int is_bf16, int mode, const void* seed, uint32_t thresh,
     float inv_keep, void* dg, void* dxr, void* datt_part, void* dkeep,
     int lanes, int chunk_bytes, int nv, int rows, int slots, int smem_bytes,
     int n_blocks, int vec_io, int head_lanes, void* stream) {
   const Args a{xl, xr, att, idx, mask, alpha, keep, go, n, n_src, k, heads,
                hc, lanes, rows, slots, smem_bytes, n_blocks, vec_io, mode,
-               slope_t, slope, KeepHash{seed0, seed1, thresh, inv_keep}, dg,
+               slope_t, slope, KeepHash{0u, 0u, thresh, inv_keep}, seed, dg,
                dxr, datt_part, dkeep, (cudaStream_t)stream};
   const int size = is_bf16 ? 2 : 4;
   if (rows * lanes > kMaxThreads || (chunk_bytes != 8 && chunk_bytes != 16) ||

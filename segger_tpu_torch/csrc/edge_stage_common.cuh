@@ -61,6 +61,19 @@ struct KeepHash {
   float inv_keep;
 };
 
+// the hash with mode 1's two seed words read from device memory, as the
+// TPU kernels read theirs from a ref: a captured CUDA graph then replays
+// with whatever words were written there before the replay
+__device__ __forceinline__ KeepHash with_seed(KeepHash hp,
+                                              const uint32_t* seed,
+                                              int mode) {
+  if (mode == kModePrng) {
+    hp.s0 = seed[0];
+    hp.s1 = seed[1];
+  }
+  return hp;
+}
+
 // murmur3 fmix32 (postgather.py::_mix32): wrapping multiplies, logical
 // shifts
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {

@@ -153,8 +153,10 @@ edge_stage_fwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
                       const uint8_t* __restrict__ mask,
                       const T* __restrict__ keep, int n, int n_src, int k,
                       int heads, int hc, int lanes, int rows, int slots,
-                      int vec_io, int mode, float slope_t, KeepHash hash,
+                      int vec_io, int mode, float slope_t,
+                      KeepHash hash_arg, const uint32_t* __restrict__ seed,
                       T* __restrict__ out, float* __restrict__ alpha) {
+  const KeepHash hash = with_seed(hash_arg, seed, mode);
   constexpr int VEC = W * kPerWord<T>;
   constexpr int E = NV * VEC;  // channels a lane holds
   constexpr bool FAST = LPH > 0;
@@ -361,6 +363,7 @@ struct Args {
       vec_io, mode;
   float slope_t;
   KeepHash hash;
+  const void* seed;
   void *out, *alpha;
   cudaStream_t stream;
 };
@@ -375,7 +378,7 @@ int launch(const Args& a) {
       (const T*)a.xl, (const T*)a.xr, (const T*)a.att, (const int32_t*)a.idx,
       (const uint8_t*)a.mask, (const T*)a.keep, a.n, a.n_src, a.k, a.heads,
       a.hc, a.lanes, a.rows, a.slots, a.vec_io, a.mode, a.slope_t, a.hash,
-      (T*)a.out, (float*)a.alpha);
+      (const uint32_t*)a.seed, (T*)a.out, (float*)a.alpha);
   return (int)cudaGetLastError();
 }
 
@@ -403,11 +406,12 @@ int launch_nv(const Args& a, int nv, int head_lanes) {
 
 // xl (n_src, hc), xr (n, hc), att (hc,) in the feature type (is_bf16:
 // bfloat16, else float32); idx (n, k) int32; mask (n, k) bool (1 byte);
-// keep (n, k, heads) feature type, read in mode 2 only; seed0/seed1 the
-// two seed words, thresh and inv_keep the dropout threshold and
-// multiplier, read in mode 1 only; slope_t the negative slope rounded to
-// the feature type.  Outputs: out (n, hc) feature type; alpha (n, k,
-// heads) float32.  mode: 0 no dropout, 1 hashed dropout, 2 keep tensor.
+// keep (n, k, heads) feature type, read in mode 2 only; seed the device
+// address of the two uint32 seed words, thresh and inv_keep the dropout
+// threshold and multiplier, read in mode 1 only; slope_t the negative
+// slope rounded to the feature type.  Outputs: out (n, hc) feature type;
+// alpha (n, k, heads) float32.  mode: 0 no dropout, 1 hashed dropout, 2
+// keep tensor.
 // The launch configuration (lanes per row, chunk bytes 8 or 16, chunks
 // per lane nv in {1, 2, 4}, rows per block, staged slots, dynamic shared
 // bytes, blocks) is ops/postgather.py::fwd_launch_config's; head_lanes,
@@ -419,13 +423,13 @@ int launch_nv(const Args& a, int nv, int head_lanes) {
 extern "C" int sgt_edge_stage_fwd(
     const void* xl, const void* xr, const void* att, const void* idx,
     const void* mask, const void* keep, int n, int n_src, int k, int heads,
-    int hc, float slope_t, int is_bf16, int mode, uint32_t seed0,
-    uint32_t seed1, uint32_t thresh, float inv_keep, void* out, void* alpha,
+    int hc, float slope_t, int is_bf16, int mode, const void* seed,
+    uint32_t thresh, float inv_keep, void* out, void* alpha,
     int lanes, int chunk_bytes, int nv, int rows, int slots, int smem_bytes,
     int n_blocks, int vec_io, int head_lanes, void* stream) {
   const Args a{xl, xr, att, idx, mask, keep, n, n_src, k, heads, hc, lanes,
                rows, slots, smem_bytes, n_blocks, vec_io, mode, slope_t,
-               KeepHash{seed0, seed1, thresh, inv_keep}, out, alpha,
+               KeepHash{0u, 0u, thresh, inv_keep}, seed, out, alpha,
                (cudaStream_t)stream};
   const int size = is_bf16 ? 2 : 4;
   if (rows * lanes > kMaxThreads || (chunk_bytes != 8 && chunk_bytes != 16) ||

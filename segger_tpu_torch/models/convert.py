@@ -107,14 +107,19 @@ def adam_state_to_optax(model: nn.Module,
 def adam_state_from_optax(model: nn.Module, optimizer: torch.optim.Adam,
                           count, mu: Mapping, nu: Mapping) -> None:
     """Install optax-layout Adam moments (see :func:`adam_state_to_optax`)
-    into ``optimizer``, which must update the same parameters."""
+    into ``optimizer``, which must update the same parameters.  The step
+    count lies on the CPU, or on the parameter's device where the group
+    is ``capturable`` or ``fused`` (whose steps read it there)."""
     mu_sd, nu_sd = params_from_flax(mu), params_from_flax(nu)
     names = {id(p): n for n, p in model.named_parameters()}
     for group in optimizer.param_groups:
+        on_device = group.get("capturable") or group.get("fused")
         for p in group["params"]:
             n = names[id(p)]
             optimizer.state[p] = {
-                "step": torch.tensor(float(count)),
+                "step": torch.tensor(float(count), dtype=torch.float32,
+                                     device=p.device if on_device
+                                     else None),
                 "exp_avg": mu_sd[n].to(p.device).reshape(p.shape).clone(),
                 "exp_avg_sq": nu_sd[n].to(p.device).reshape(p.shape).clone(),
             }

@@ -125,19 +125,29 @@ def tt_segments(tile: TileGraph) -> Optional[List[Segment]]:
     unfused (None)."""
     idx, mask = tile.tt.idx, tile.tt.mask
     n = idx.shape[0]
-    if not (tile.tt_n_lo > 0 and tile.tt_lo_t is not None
-            and tile.tt_hi_t is not None):
+    bounds = _tt_bounds(tile, n, idx.shape[1])
+    if bounds is None:
         if tile.tt_t is None:
             return None
         return [(0, n, idx, mask, tile.tt_t)]
+    return [(a, b, idx[a:b, :k].contiguous(), mask[a:b, :k].contiguous(), t)
+            for a, b, k, t in bounds]
+
+
+def _tt_bounds(tile: TileGraph, n: int, k: int):
+    """``(start, stop, K, transpose table)`` of each degree segment of an
+    (n, k) tt table, or None when the tile carries no per-segment
+    transpose tables."""
+    if not (tile.tt_n_lo > 0 and tile.tt_lo_t is not None
+            and tile.tt_hi_t is not None):
+        return None
     if tile.tt_n_xlo > 0 and tile.tt_xlo_t is not None:
         bounds = [(0, tile.tt_n_xlo, tile.tt_k_xlo, tile.tt_xlo_t),
                   (tile.tt_n_xlo, tile.tt_n_lo, tile.tt_k_lo, tile.tt_lo_t)]
     else:
         bounds = [(0, tile.tt_n_lo, tile.tt_k_lo, tile.tt_lo_t)]
-    bounds.append((tile.tt_n_lo, n, idx.shape[1], tile.tt_hi_t))
-    return [(a, b, idx[a:b, :k].contiguous(), mask[a:b, :k].contiguous(), t)
-            for a, b, k, t in bounds]
+    bounds.append((tile.tt_n_lo, n, k, tile.tt_hi_t))
+    return bounds
 
 
 class ISTEncoder(nn.Module):
@@ -201,6 +211,21 @@ class ISTEncoder(nn.Module):
             bound = 1.0 / lin.in_features ** 0.5
             with torch.no_grad():
                 lin.bias.uniform_(-bound, bound, generator=generator)
+
+    def seed_launches(self, tile: TileGraph) -> int:
+        """The seed-word pairs one forward of ``tile`` (fused, dropout
+        on) draws: one per edge-stage launch of each conv with dropout,
+        i.e. per tt segment, tb, and bt where it runs.  ``tile`` may hold
+        NumPy arrays or a batch; only its static fields are read."""
+        n_tt = len(_tt_bounds(tile, 0, 0) or [None])
+        count = 0
+        for i in range(self.n_layers):
+            layer = getattr(self, f"conv_{i}")
+            for conv, n in ((layer.tt, n_tt), (layer.tb, 1),
+                            (layer.bt, int(tile.bt is not None))):
+                if conv is not None and conv.dropout > 0.0:
+                    count += n
+        return count
 
     def forward(self, tile: TileGraph, deterministic: bool = True,
                 seeds: Optional[SeedSource] = None,

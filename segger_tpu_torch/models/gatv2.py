@@ -30,7 +30,10 @@ two fresh 32-bit seed words from ``seeds`` (one per tt segment, in
 segment order, then one per launch of the next conv), and the keep
 multipliers are hashed from them inside the kernels; the unfused path
 takes one pair per call and draws flax's ``Dropout`` mask on the
-coefficients from a ``torch.Generator`` seeded with it.
+coefficients from a ``torch.Generator`` seeded with it.  The words are
+host ints (:func:`torch_seed_source`) or rows of a device tensor
+(:class:`BufferSeedSource`), which the kernels read where they lie: the
+fused path then takes no host value, as a CUDA graph's replay needs.
 
 Types follow ``flax.linen.Dense(dtype=...)``: with a compute dtype, the
 projections and ``att`` run in it, and adding the float32 ``bias``
@@ -38,7 +41,7 @@ promotes each conv's output to float32.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -52,8 +55,9 @@ from .positional import dense
 # contiguous (stop - start, K) idx / mask tables and the segment's
 # transpose table (flat slot positions; None without one)
 Segment = Tuple[int, int, torch.Tensor, torch.Tensor, Optional[PaddedCSR]]
-# yields the next launch's two seed words
-SeedSource = Callable[[], Tuple[int, int]]
+# yields the next launch's two seed words: two ints, or a (2,) int32
+# tensor of their bit patterns
+SeedSource = Callable[[], Union[Tuple[int, int], torch.Tensor]]
 
 
 def torch_seed_source(generator: Optional[torch.Generator] = None
@@ -65,6 +69,23 @@ def torch_seed_source(generator: Optional[torch.Generator] = None
                           generator=generator)
         return int(w[0]), int(w[1])
     return draw
+
+
+class BufferSeedSource:
+    """Seed words read from the rows of an (n, 2) int32 tensor, one row a
+    call in order; ``used`` counts the rows handed out.  Running past the
+    last row raises."""
+
+    def __init__(self, words: torch.Tensor):
+        self.words = words
+        self.used = 0
+
+    def __call__(self) -> torch.Tensor:
+        if self.used >= self.words.shape[0]:
+            raise IndexError(f"seed buffer of {self.words.shape[0]} "
+                             "launches exhausted")
+        self.used += 1
+        return self.words[self.used - 1]
 
 
 def glorot_uniform_(t: torch.Tensor, fan_in: int, fan_out: int,
@@ -154,8 +175,9 @@ class GATv2Conv(nn.Module):
         alpha = csr_softmax(logits, csr)
         a = alpha
         if seed is not None:
+            s0, s1 = (int(w) & 0xFFFFFFFF for w in seed)
             gen = torch.Generator(device=alpha.device)
-            gen.manual_seed((seed[0] << 32) | seed[1])
+            gen.manual_seed((s0 << 32) | s1)
             keep_p = 1.0 - self.dropout
             keep = torch.rand(alpha.shape, generator=gen,
                               device=alpha.device) < keep_p

@@ -183,23 +183,40 @@ def cosine_weight_schedule(epoch: int, max_epochs: int, w_start, w_end,
     return w.astype(np.float32)
 
 
-def draw_loss_randoms(tile, generator: torch.Generator) -> LossRandoms:
+def draw_loss_uniforms(n_tx: int, n_bd: int, n_sg: int,
+                       generator: torch.Generator):
     """One tile's loss random numbers from a CPU generator, in a fixed
-    order (tx sampler, bd sampler, segmentation shifts), on the tile's
-    device."""
-    dev = tile.tx_valid.device
-
+    order (tx sampler, bd sampler, segmentation shifts): ``(4, n_tx)`` and
+    ``(4, n_bd)`` float32 uniforms and ``(n_sg,)`` float64 uniforms, on
+    the CPU."""
     def uniforms(n):
-        return tuple(torch.rand(n, generator=generator).to(dev)
-                     for _ in range(4))
+        return torch.stack([torch.rand(n, generator=generator)
+                            for _ in range(4)])
 
-    tx = uniforms(tile.tx_valid.shape[0])
-    bd = uniforms(tile.bd_valid.shape[0])
-    u = torch.rand(tile.sg_src.shape[0], generator=generator,
-                   dtype=torch.float64).to(dev)
+    tx = uniforms(n_tx)
+    bd = uniforms(n_bd)
+    return tx, bd, torch.rand(n_sg, generator=generator, dtype=torch.float64)
+
+
+def loss_randoms(tile, tx_u: torch.Tensor, bd_u: torch.Tensor,
+                 sg_u: torch.Tensor) -> LossRandoms:
+    """The tile's :class:`LossRandoms` from its uniforms (on the tile's
+    device, as :func:`draw_loss_uniforms` lays them out): the samplers'
+    four rows each, and the segmentation shifts in ``[1, nb)``, computed
+    on the device from the tile's boundary count."""
     nb = tile.bd_valid.sum().clamp(min=2)
-    shift = (1 + torch.floor(u * (nb - 1)).long()).clamp(max=nb - 1)
-    return LossRandoms(tx, bd, shift)
+    shift = (1 + torch.floor(sg_u * (nb - 1)).long()).clamp(max=nb - 1)
+    return LossRandoms(tuple(tx_u), tuple(bd_u), shift)
+
+
+def draw_loss_randoms(tile, generator: torch.Generator) -> LossRandoms:
+    """One tile's loss random numbers from a CPU generator
+    (:func:`draw_loss_uniforms`), on the tile's device."""
+    dev = tile.tx_valid.device
+    uniforms = draw_loss_uniforms(tile.tx_valid.shape[0],
+                                  tile.bd_valid.shape[0],
+                                  tile.sg_src.shape[0], generator)
+    return loss_randoms(tile, *(u.to(dev) for u in uniforms))
 
 
 def loss_stats(randoms: LossRandoms, emb, tile, tx_similarity,

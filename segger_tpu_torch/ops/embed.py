@@ -23,11 +23,15 @@ class _EmbedLookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        ok = (ids >= 0) & (ids < ctx.n_vocab)
-        grad = torch.zeros((ctx.n_vocab, g.shape[-1]), dtype=torch.float32,
+        v = ctx.n_vocab
+        # ids outside [0, V) add into a spare row V that is dropped, so no
+        # step of the backward depends on how many there are (a CUDA
+        # graph can capture it)
+        rows = torch.where((ids >= 0) & (ids < v), ids, v)
+        grad = torch.zeros((v + 1, g.shape[-1]), dtype=torch.float32,
                            device=g.device)
-        grad.index_add_(0, ids[ok], g[ok].float())
-        return grad.to(g.dtype), None
+        grad.index_add_(0, rows, g.float())
+        return grad[:v].to(g.dtype), None
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -13,8 +13,12 @@ Dropout has the JAX package's three modes:
 
 - ``nokeep``: no dropout (``seed=None``, ``keep=None``);
 - ``prng``: keep multipliers hashed from two 32-bit seed words and the
-  flat position ``row*K*H + slot*H + head`` (``seed=(s0, s1)``, ``rate``),
-  bit for bit the stream of ``_prng_keep``;
+  flat position ``row*K*H + slot*H + head`` (``seed=(s0, s1)`` or a
+  ``(2,)`` int32 tensor of the words, with ``rate``), bit for bit the
+  stream of ``_prng_keep``.  The kernels read the words from device
+  memory, as the TPU kernels read theirs from a ref, so a captured CUDA
+  graph draws a fresh mask whenever new words are written into the
+  tensor before a replay;
 - ``keep``: multipliers read from an ``(N, K, H)`` tensor (``keep=``).
 
 :func:`edge_stage_fwd` and :func:`edge_stage_bwd` launch their kernel for
@@ -26,7 +30,7 @@ counts its launches per mode in ``.launches`` (a dict).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -50,7 +54,9 @@ SMEM_8_BLOCKS = 233_472 // 8 - 1024
 # while eight blocks share an SM
 _WIDE_MIN_ROWS = 2048
 
-Seed = Optional[Sequence[int]]
+# two 32-bit seed words: ints, or a (2,) int32 tensor of their bit
+# patterns
+Seed = Optional[Union[Sequence[int], torch.Tensor]]
 
 
 def _mode(seed: Seed, keep) -> str:
@@ -71,11 +77,37 @@ def prng_config(rate: float) -> Tuple[int, float]:
     return thresh, float(torch.tensor(1.0 / keep_p, dtype=torch.float32))
 
 
-def seed_words(seed: Sequence[int]) -> Tuple[int, int]:
-    """Two seed words as unsigned 32-bit ints."""
+def seed_words(seed):
+    """Two seed words as unsigned 32-bit values: ints for ints, 0-d int64
+    tensors (on the seed's device) for a tensor of words."""
     if len(seed) != 2:
         raise ValueError(f"edge stage: seed needs two words, got {seed}")
+    if isinstance(seed, torch.Tensor):
+        if seed.dtype != torch.int32:
+            raise TypeError("edge stage: a seed tensor must be int32")
+        w = seed.long() & 0xFFFFFFFF
+        return w[0], w[1]
     return int(seed[0]) & 0xFFFFFFFF, int(seed[1]) & 0xFFFFFFFF
+
+
+def seed_tensor(seed, device) -> torch.Tensor:
+    """The two seed words as the (2,) int32 tensor on ``device`` that the
+    kernels read: a seed tensor as it is (checked), ints as their bit
+    patterns."""
+    if isinstance(seed, torch.Tensor):
+        if seed.dtype != torch.int32 or seed.shape != (2,) \
+                or seed.device != device:
+            raise ValueError(f"edge stage: the seed tensor must be (2,) "
+                             f"int32 on {device}")
+        return seed.contiguous()
+    return torch.tensor(seed_int32(seed), dtype=torch.int32, device=device)
+
+
+def seed_int32(seed: Sequence[int]) -> Tuple[int, int]:
+    """Two seed words as the int32 values of their bit patterns, as a
+    seed tensor holds them."""
+    s0, s1 = (w - (1 << 32) if w >= 1 << 31 else w for w in seed_words(seed))
+    return s0, s1
 
 
 def _fmix32(x: torch.Tensor) -> torch.Tensor:
@@ -88,22 +120,25 @@ def _fmix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def prng_hash(pos: torch.Tensor, seed: Sequence[int]) -> torch.Tensor:
+def prng_hash(pos: torch.Tensor, seed) -> torch.Tensor:
     """The 32-bit hash of flat positions (any integer tensor, taken
-    modulo 2^32) under the seed words, as int64 in [0, 2^32)."""
+    modulo 2^32) under the seed words (ints or a tensor of words on
+    ``pos``'s device), as int64 in [0, 2^32)."""
     s0, s1 = seed_words(seed)
     m = 0xFFFFFFFF
     x = _fmix32((pos.long() & m) ^ s0)
     return _fmix32(x ^ ((s1 + 0x9E3779B9) & m))
 
 
-def prng_keep_reference(seed: Sequence[int], n: int, k: int, heads: int,
+def prng_keep_reference(seed, n: int, k: int, heads: int,
                         rate: float, device="cpu") -> torch.Tensor:
     """``(n, k, heads)`` float32 dropout multipliers of the hashed stream
     (``postgather.py::_prng_keep`` over a whole table)."""
     thresh, inv_keep = prng_config(rate)
     pos = torch.arange(n * k * heads, dtype=torch.int64,
                        device=device).view(n, k, heads)
+    if isinstance(seed, torch.Tensor):
+        seed = seed.to(pos.device)
     bits = prng_hash(pos, seed) & 0x7FFFFFFF
     return torch.where(bits <= thresh, inv_keep, 0.0).float()
 
@@ -351,11 +386,14 @@ def on_cuda(name, xl, *others):
             raise ValueError(f"{name}: tensors on different devices")
 
 
-def _hash_args(mode, seed, rate):
+def _hash_args(mode, seed, rate, device):
+    """The seed words' tensor (kept alive by the caller until the launch
+    is queued), its address, and the threshold and multiplier."""
     if mode != "prng":
-        return 0, 0, 0, 1.0
+        return None, 0, 0, 1.0
     thresh, inv_keep = prng_config(rate)
-    return (*seed_words(seed), thresh, inv_keep)
+    words = seed_tensor(seed, device)
+    return words, words.data_ptr(), thresh, inv_keep
 
 
 def edge_stage_fwd(xl, xr, att, idx, mask, heads: int,
@@ -365,10 +403,11 @@ def edge_stage_fwd(xl, xr, att, idx, mask, heads: int,
 
     xl (N_src, HC), xr (N, HC), att (H, C): float32 or bfloat16, one
     dtype.  idx (N, K) int32 (clipped into [0, N_src)), mask (N, K) bool.
-    Dropout: ``seed`` (two 32-bit words) with ``rate``, or ``keep`` (N, K,
-    H) multipliers, or neither.  Returns ``(out (N, HC) in the feature
-    dtype, alpha (N, K, H) float32 before dropout)``; rows with no valid
-    slot give alpha = 0 and out = 0.
+    Dropout: ``seed`` (two 32-bit words, as ints or a (2,) int32 tensor on
+    the features' device, which the kernel reads) with ``rate``, or
+    ``keep`` (N, K, H) multipliers, or neither.  Returns ``(out (N, HC)
+    in the feature dtype, alpha (N, K, H) float32 before dropout)``; rows
+    with no valid slot give alpha = 0 and out = 0.
 
     CUDA tensors run the kernel (every launch adds one to
     ``edge_stage_fwd.launches[mode]``); CPU tensors run the plain version.
@@ -392,10 +431,11 @@ def edge_stage_fwd(xl, xr, att, idx, mask, heads: int,
         return out, alpha
     cfg = fwd_launch_config(n, k, hc, heads, xl.dtype)
     vec_io = _vec_io(cfg, hc, xl, xr, out)
-    s0, s1, thresh, inv_keep = _hash_args(mode, seed, rate)
+    words, seed_ptr, thresh, inv_keep = _hash_args(mode, seed, rate,
+                                                   xl.device)
     fn = _fn("edge_stage_fwd", 6, 5, [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
-        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_uint32, ctypes.c_float,
         ctypes.c_void_p, ctypes.c_void_p, *[ctypes.c_int] * 9,
         ctypes.c_void_p])
     with torch.cuda.device(xl.device):
@@ -404,8 +444,8 @@ def edge_stage_fwd(xl, xr, att, idx, mask, heads: int,
                  idx.data_ptr(), mask.data_ptr(),
                  0 if keep is None else keep.data_ptr(), n, xl.shape[0], k,
                  heads, hc, dtype_slope(negative_slope, xl.dtype),
-                 int(xl.dtype == torch.bfloat16), MODES.index(mode), s0, s1,
-                 thresh, inv_keep, out.data_ptr(), alpha.data_ptr(),
+                 int(xl.dtype == torch.bfloat16), MODES.index(mode),
+                 seed_ptr, thresh, inv_keep, out.data_ptr(), alpha.data_ptr(),
                  *cfg[:7], int(vec_io), cfg.head_lanes if vec_io else 0,
                  stream)
     if err:
@@ -460,10 +500,10 @@ def edge_stage_bwd(xl, xr, att, idx, mask, alpha, go, heads: int,
     datt_part = torch.empty((cfg.n_blocks, hc), dtype=torch.float32,
                             device=dev)
     vec_io = _vec_io(cfg, hc, xl, xr, go, dg, dxr)
-    s0, s1, thresh, inv_keep = _hash_args(mode, seed, rate)
+    words, seed_ptr, thresh, inv_keep = _hash_args(mode, seed, rate, dev)
     fn = _fn("edge_stage_bwd", 8, 5, [
         ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
+        ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         *[ctypes.c_int] * 9, ctypes.c_void_p])
     with torch.cuda.device(dev):
@@ -473,8 +513,8 @@ def edge_stage_bwd(xl, xr, att, idx, mask, alpha, go, heads: int,
                  0 if keep is None else keep.data_ptr(), go.data_ptr(), n,
                  xl.shape[0], k, heads, hc,
                  dtype_slope(negative_slope, xl.dtype), float(negative_slope),
-                 int(xl.dtype == torch.bfloat16), MODES.index(mode), s0, s1,
-                 thresh, inv_keep, dg.data_ptr(), dxr.data_ptr(),
+                 int(xl.dtype == torch.bfloat16), MODES.index(mode),
+                 seed_ptr, thresh, inv_keep, dg.data_ptr(), dxr.data_ptr(),
                  datt_part.data_ptr(),
                  0 if dkeep is None else dkeep.data_ptr(), *cfg[:7],
                  int(vec_io), cfg.head_lanes if vec_io else 0, stream)

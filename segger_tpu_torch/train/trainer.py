@@ -6,9 +6,18 @@ packing per epoch, the cosine loss-weight schedule, the joint masked
 means of the three losses across the tiles of a step, Adam, a
 deterministic validation pass, and checkpoints that the JAX package
 reads.  ``SeggerTrainer.predict`` bin-packs halo tiles into batches,
-extracts each batch on a background thread, moves it to the device,
-runs the encoder and the candidate scoring on every tile, and returns
-the assignment of each interior transcript.
+extracts each batch on a background thread, runs the encoder and the
+candidate scoring on every tile, and returns the assignment of each
+interior transcript.
+
+Every train, eval and predict step is a :class:`~.graphs.CompiledStep`,
+the port of the JAX package's ``jax.jit`` steps: on CUDA it is captured
+as a CUDA graph once per kind and input signature (one bucket shape
+under ``shape_merge="global"``) and replayed for every batch, the host
+staging each batch, its dropout seed words and its loss uniforms into
+the step's inputs; on the CPU the same step body runs eagerly.  There is
+no eager path on CUDA: a capture or replay that fails raises.
+``train_step`` and ``eval_step`` stay eager, for comparisons.
 
 The trainer runs on CUDA unless the caller asks for the CPU
 (``device="cpu"``), and raises when no CUDA device is present rather
@@ -42,10 +51,12 @@ from ..data.partition import (
 from ..models import losses as L
 from ..models.convert import params_from_flax
 from ..models.encoder import ISTEncoder
-from ..models.gatv2 import torch_seed_source
+from ..models.gatv2 import BufferSeedSource, torch_seed_source
 from ..ops.gather_agg import score_candidates
 from ..ops.padded_csr import PaddedCSR
+from ..ops.postgather import seed_int32
 from .checkpoint import load_checkpoint, save_checkpoint
+from .graphs import CompiledStep, StepInputs, signature, tile_arrays
 from .prefetch import PrefetchIterator
 
 logger = logging.getLogger(__name__)
@@ -55,9 +66,9 @@ logger = logging.getLogger(__name__)
 class TrainConfig:
     """Hyperparameters (defaults follow the reference's LitISTEncoder /
     ISTDataModule), as in ``segger_tpu.train.trainer.TrainConfig``.
-    ``scan_steps`` is accepted and changes nothing: the JAX package uses
-    it to run several steps in one dispatch, with the same result as
-    running them one by one, which is what this trainer does."""
+    ``scan_steps = S > 0`` queues S training steps before their loss rows
+    come back to the host (the JAX package runs them in one dispatch);
+    the result equals ``scan_steps = 0``, which reads every step's."""
 
     in_channels: int = 16
     hidden_channels: int = 64
@@ -147,6 +158,15 @@ class SeggerTrainer:
         # epoch-spanning tile-extraction cache (TrainConfig.tile_cache_gb)
         self._tile_cache: Dict = {}
         self._tile_cache_bytes = 0
+        # bytes the steps' inputs took in and their outputs gave back (on
+        # CUDA the pinned staging copies), as the JAX package counts them
+        self.bytes_to_device = 0
+        self.bytes_to_host = 0
+        # compiled steps by (kind, input signature), their memory pool,
+        # and the captures made per kind (JAX's trace count)
+        self._steps: Dict[tuple, CompiledStep] = {}
+        self._pool = None
+        self.captures = dict.fromkeys(("train", "eval", "predict"), 0)
 
     # ------------------------------------------------------------------
     def init(self) -> None:
@@ -164,6 +184,7 @@ class SeggerTrainer:
         self.model = model.to(self.device)
         self.initialized = True
         self._make_optimizer()
+        self._drop_steps()
 
     def load_params(self, params) -> None:
         """Load a flax-layout parameter tree (nested dict of arrays, as
@@ -174,11 +195,15 @@ class SeggerTrainer:
         self.initialized = True
         if self.optimizer is None:
             self._make_optimizer()
+        self._drop_steps()
 
     def _make_optimizer(self) -> None:
         """``optax.adam(lr)`` as ``torch.optim.Adam``; with
         ``update_gene_embedding=False`` the gene embedding is frozen (left
-        out, as ``optax.masked`` leaves it out)."""
+        out, as ``optax.masked`` leaves it out).  On CUDA it is
+        ``capturable``, its step count on the device, so that a captured
+        train step replays its update, and ``fused``: one kernel for the
+        update of every parameter."""
         params = []
         for name, p in self.model.named_parameters():
             frozen = (not self.cfg.update_gene_embedding
@@ -186,8 +211,16 @@ class SeggerTrainer:
             p.requires_grad_(not frozen)
             if not frozen:
                 params.append(p)
+        cuda = self.device.type == "cuda"
         self.optimizer = torch.optim.Adam(
-            params, lr=self.cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+            params, lr=self.cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+            capturable=cuda, fused=cuda or None)
+
+    def _drop_steps(self) -> None:
+        """Forget the compiled steps: they hold the addresses of the
+        parameters and the optimizer state they were captured with."""
+        self._steps = {}
+        self._pool = None
 
     # ------------------------------------------------------------------
     def _batch_plans(
@@ -302,28 +335,35 @@ class SeggerTrainer:
                       cfg.sg_weight_end]),
         )
 
-    def _loss(self, batch: TileGraph, gen: torch.Generator,
-              weights: np.ndarray, deterministic: bool):
+    def _joint_loss(self, batch: TileGraph, seeds, randoms, w):
         """The step loss over a device batch and its three parts: each
-        tile draws its dropout seeds (forward) and its loss randoms from
-        ``gen``, and the per-tile ``(sum, count)`` statistics are summed
-        before the masked means, as the JAX package's joint means."""
-        seeds = torch_seed_source(gen)
+        tile's forward (dropout on when ``seeds`` yields its launches'
+        words), then its loss statistics from ``randoms(b, tile)``; the
+        per-tile ``(sum, count)`` statistics are summed before the masked
+        means, as the JAX package's joint means, and weighted by ``w``."""
         stats = []
         for b in range(batch.tx_gene.shape[0]):
             tile = batch.map_arrays(lambda a: a[b])
-            emb = self.model(tile, deterministic=deterministic, seeds=seeds)
+            emb = self.model(tile, deterministic=seeds is None, seeds=seeds)
             stats.append(L.loss_stats(
-                L.draw_loss_randoms(tile, gen), emb, tile,
+                randoms(b, tile), emb, tile,
                 self.tx_similarity, self.bd_similarity,
                 tx_margin=self.cfg.tx_margin, sg_margin=self.cfg.sg_margin,
                 sg_loss_type=self.cfg.sg_loss_type, use_interior=True,
             ))
         tot = torch.stack(stats).sum(dim=0)
         parts = tot[0::2] / tot[1::2].clamp(min=1.0)
-        w = torch.from_numpy(weights).to(parts.device)
         loss = w[0] * parts[0] + w[1] * parts[1] + w[2] * parts[2]
         return loss, parts
+
+    def _loss(self, batch: TileGraph, gen: torch.Generator,
+              weights: np.ndarray, deterministic: bool):
+        """The eager step loss: each tile draws its dropout seeds
+        (forward) and its loss randoms from ``gen``, in that order."""
+        return self._joint_loss(
+            batch, None if deterministic else torch_seed_source(gen),
+            lambda b, tile: L.draw_loss_randoms(tile, gen),
+            torch.from_numpy(weights).to(self.device))
 
     def train_step(self, batch: TileGraph, gen: torch.Generator,
                    weights: np.ndarray) -> List[float]:
@@ -342,6 +382,171 @@ class SeggerTrainer:
             loss, parts = self._loss(batch, gen, weights, deterministic=True)
         return torch.cat([loss[None], parts]).tolist()
 
+    # ------------------------------------------------------------------
+    # compiled steps: bodies that read only their StepInputs
+    def _loss_from(self, inp: StepInputs, train: bool):
+        seeds = BufferSeedSource(inp.seeds) if train else None
+        loss, parts = self._joint_loss(
+            inp.batch, seeds,
+            lambda b, tile: L.loss_randoms(tile, inp.tx_u[b], inp.bd_u[b],
+                                           inp.sg_u[b]),
+            inp.weights)
+        if seeds is not None and seeds.used != inp.seeds.shape[0]:
+            raise RuntimeError(f"the step used {seeds.used} of its "
+                               f"{inp.seeds.shape[0]} seed pairs")
+        return loss, parts
+
+    def _train_body(self, inp: StepInputs) -> torch.Tensor:
+        """:meth:`train_step` on the step inputs: the loss row
+        ``[loss, loss_tx, loss_bd, loss_sg]`` after one Adam step."""
+        loss, parts = self._loss_from(inp, train=True)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer.step()
+        return torch.cat([loss[None], parts]).detach()
+
+    def _eval_body(self, inp: StepInputs) -> torch.Tensor:
+        """:meth:`eval_step` on the step inputs."""
+        with torch.no_grad():
+            loss, parts = self._loss_from(inp, train=False)
+        return torch.cat([loss[None], parts])
+
+    def _predict_body(self, inp: StepInputs) -> torch.Tensor:
+        """Per tile, ``(tx_index, cell_encoding, similarity, gene,
+        interior mask)`` over every row, as the JAX package's
+        ``predict_step`` returns them, in one ``(B, 5, n_tx)`` int32
+        tensor (the similarity's float32 bits) for one copy back."""
+        rows = []
+        with torch.no_grad():
+            for b in range(inp.batch.tx_gene.shape[0]):
+                tile = inp.batch.map_arrays(lambda a: a[b])
+                emb = self.model(tile)
+                max_sim, seg = score_candidates(
+                    emb["tx"], emb["bd"], tile.cand, tile.bd_index,
+                    dtype=self.dtype,
+                    normalized=self.cfg.normalize_embeddings,
+                )
+                rows.append(torch.stack([
+                    tile.tx_index, seg, max_sim.view(torch.int32),
+                    tile.tx_gene,
+                    (tile.tx_interior & tile.tx_valid).to(torch.int32)]))
+        return torch.stack(rows)
+
+    def _train_state(self) -> Callable[[], None]:
+        """Copy the parameters and the optimizer state; the function
+        returned writes them back in place (state the optimizer did not
+        have yet as zeros, which is how Adam starts it)."""
+        params = [p.detach().clone() for p in self.model.parameters()]
+        saved = {p: {k: v.clone() for k, v in st.items()
+                     if torch.is_tensor(v)}
+                 for p, st in self.optimizer.state.items()}
+
+        def restore():
+            with torch.no_grad():
+                for p, c in zip(self.model.parameters(), params):
+                    p.copy_(c)
+                for p, st in self.optimizer.state.items():
+                    for k, v in st.items():
+                        if torch.is_tensor(v):
+                            if p in saved:
+                                v.copy_(saved[p][k])
+                            else:
+                                v.zero_()
+        return restore
+
+    def _step(self, kind: str, batch: TileGraph) -> CompiledStep:
+        """The compiled step of ``kind`` ("train", "eval" or "predict")
+        for a NumPy batch's signature, made at its first use."""
+        key = (kind, signature(batch))
+        step = self._steps.get(key)
+        if step is not None:
+            return step
+        n_seeds = (self.model.seed_launches(batch) * batch.tx_gene.shape[0]
+                   if kind == "train" else 0)
+        cuda = self.device.type == "cuda"
+        if cuda and self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+
+        def inputs(device, pin=False):
+            return StepInputs.like(batch, n_seeds, device,
+                                   losses=kind != "predict", pin=pin)
+
+        step = CompiledStep(
+            {"train": self._train_body, "eval": self._eval_body,
+             "predict": self._predict_body}[kind],
+            inputs(self.device), self._pool,
+            snapshot=self._train_state if kind == "train" else None,
+            staging=[inputs("cpu", pin=True) for _ in range(2)]
+            if cuda else None)
+        self._steps[key] = step
+        return step
+
+    def _stage(self, step: CompiledStep, batch: TileGraph,
+               gen: Optional[torch.Generator] = None,
+               weights: Optional[np.ndarray] = None) -> None:
+        """Fill the step's inputs with a NumPy batch and, for a loss
+        step, the random numbers ``gen`` gives in the eager step's order:
+        per tile its launches' seed words (train steps), then its loss
+        uniforms; then the weights."""
+        inp = step.staging()
+        for dst, src in zip(tile_arrays(inp.batch), tile_arrays(batch)):
+            dst.copy_(torch.from_numpy(src))
+        if gen is not None:
+            n_tiles = inp.tx_u.shape[0]
+            per_tile = inp.seeds.shape[0] // n_tiles
+            draw = torch_seed_source(gen)
+            words = []
+            for b in range(n_tiles):
+                words += [seed_int32(draw()) for _ in range(per_tile)]
+                for dst, u in zip((inp.tx_u[b], inp.bd_u[b], inp.sg_u[b]),
+                                  L.draw_loss_uniforms(
+                                      inp.tx_u.shape[2], inp.bd_u.shape[2],
+                                      inp.sg_u.shape[1], gen)):
+                    dst.copy_(u)
+            if words:
+                inp.seeds.copy_(torch.tensor(words, dtype=torch.int32))
+            inp.weights.copy_(torch.from_numpy(weights))
+        step.upload()
+        self.bytes_to_device += sum(t.nbytes for t in inp.tensors())
+
+    def _run(self, kind: str, step: CompiledStep) -> torch.Tensor:
+        if step.cuda and step.graph is None:
+            self.captures[kind] += 1
+        return step.run()
+
+    def _loss_pass(self, kind: str, plans, gen: torch.Generator,
+                   weights: np.ndarray, cache: bool, depth: int,
+                   epoch: Optional[int] = None) -> List[List[float]]:
+        """Run the compiled ``kind`` step ("train" or "eval") on every
+        plan's batch, reading the loss rows back ``depth`` steps at a
+        time; training steps also go into ``step_log``."""
+        rows: List[List[float]] = []
+        arrived: List[float] = []
+        buf = torch.empty((depth, 4), device=self.device)
+
+        def read_back():
+            got = buf[:len(arrived)].tolist()
+            now = time.perf_counter()
+            for t0, rec in zip(arrived, got):
+                rows.append(rec)
+                if epoch is not None:
+                    self.step_log.append((epoch, rec, now - t0))
+            arrived.clear()
+
+        with PrefetchIterator(
+                plans, lambda p: self._build_batch(p, cache)) as batches:
+            for batch in batches:
+                t0 = time.perf_counter()
+                step = self._step(kind, batch)
+                self._stage(step, batch, gen, weights)
+                buf[len(arrived)].copy_(self._run(kind, step))
+                arrived.append(t0)
+                if len(arrived) == depth:
+                    read_back()
+        if arrived:
+            read_back()
+        return rows
+
     def fit(
         self,
         fit_tiles: Sequence[TileSpec],
@@ -353,7 +558,9 @@ class SeggerTrainer:
         Per epoch: shuffled bucketed packing without the extra-low degree
         segment, the cosine loss weights, one Adam step per batch with
         dropout on, then a deterministic validation pass; one history
-        record per epoch with the JAX package's keys.
+        record per epoch with the JAX package's keys.  Every step is a
+        compiled step (a replayed CUDA graph on CUDA); with
+        ``scan_steps = S > 0`` the loss rows come back S steps at a time.
         ``on_epoch_end(epoch, trainer)`` runs after each record.  With
         ``checkpoint_dir``, ``latest.npz`` is resumed from at the epoch
         after its own and written every ``checkpoint_every`` epochs."""
@@ -370,6 +577,7 @@ class SeggerTrainer:
             params, meta = load_checkpoint(latest, self.model,
                                            self.optimizer)
             self.model.load_state_dict(params_from_flax(params), strict=True)
+            self._drop_steps()      # the optimizer state is new tensors
             start_epoch = int(meta.get("extra", {}).get("epoch", -1)) + 1
             logger.info("resumed from epoch %d", start_epoch)
 
@@ -379,26 +587,13 @@ class SeggerTrainer:
             # the cache pays only across epochs: the last inserts nothing
             cache = epoch < max_epochs - 1
             plans = self._batch_plans(train_tiles, shuffle=True, rng=erng)
-            ep_loss = []
-            with PrefetchIterator(
-                    plans, lambda p: self._build_batch(p, cache)) as batches:
-                for batch in batches:
-                    t0 = time.perf_counter()
-                    rec = self.train_step(batch.to(self.device), gen,
-                                          weights)
-                    self.step_log.append(
-                        (epoch, rec, time.perf_counter() - t0))
-                    ep_loss.append(rec)
+            ep_loss = self._loss_pass("train", plans, gen, weights, cache,
+                                      max(cfg.scan_steps, 1), epoch)
             rec = {"epoch": epoch}
             rec.update(_means("train", ep_loss))
             if val_plans:
-                vl = []
-                with PrefetchIterator(
-                        val_plans,
-                        lambda p: self._build_batch(p, cache)) as batches:
-                    for batch in batches:
-                        vl.append(self.eval_step(batch.to(self.device), gen,
-                                                 weights))
+                vl = self._loss_pass("eval", val_plans, gen, weights, cache,
+                                     1)
                 rec.update(_means("val", vl))
             logger.info("epoch %d: %s", epoch, rec)
             self.history.append(rec)
@@ -411,34 +606,28 @@ class SeggerTrainer:
         return self.history
 
     # ------------------------------------------------------------------
-    def _predict_tile(self, tile: TileGraph):
-        emb = self.model(tile)
-        max_sim, seg = score_candidates(
-            emb["tx"], emb["bd"], tile.cand, tile.bd_index,
-            dtype=self.dtype, normalized=self.cfg.normalize_embeddings,
-        )
-        m = tile.tx_interior & tile.tx_valid
-        return tile.tx_index[m], seg[m], max_sim[m], tile.tx_gene[m]
-
     def _predict_batches(self, predict_tiles: Sequence[TileSpec]):
         """Per batch, the concatenated (row_index, cell_encoding,
-        similarity, gene) NumPy arrays of its interior transcripts."""
+        similarity, gene) NumPy arrays of its interior transcripts: the
+        compiled predict step returns every row and its mask in one
+        tensor, and the host applies the mask."""
         if not self.initialized:
             raise RuntimeError("call init() or load_params() first")
         self.release_tile_cache()
         plans = self._batch_plans(predict_tiles, use_xlo=True)
-        with torch.no_grad(), PrefetchIterator(
+        with PrefetchIterator(
                 plans, lambda p: self._build_batch(p, cache=False)
         ) as batches:
             for batch in batches:
-                dev = batch.to(self.device)
-                n_tiles = dev.tx_gene.shape[0]
-                outs = [self._predict_tile(dev.map_arrays(lambda a: a[b]))
-                        for b in range(n_tiles)]
-                yield tuple(
-                    torch.cat([o[i] for o in outs]).cpu().numpy()
-                    for i in range(4)
-                )
+                step = self._step("predict", batch)
+                self._stage(step, batch)
+                out = step.fetch(self._run("predict", step))
+                self.bytes_to_host += out.nbytes
+                a = out.numpy()
+                m = a[:, 4].ravel() != 0
+                yield (a[:, 0].ravel()[m], a[:, 1].ravel()[m],
+                       a[:, 2].ravel().view(np.float32)[m],
+                       a[:, 3].ravel()[m])
 
     def predict(
         self, predict_tiles: Sequence[TileSpec]
