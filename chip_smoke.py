@@ -51,7 +51,24 @@ Phases (any failure exits non-zero; nothing is caught):
    slide-wide strip-major table, through K1 + bias, K6, K7 and the
    unfused conv (which must agree, its attention summing to 1), with
    launch counts; then the encoder's attention-capture forward on the
-   first predict tile against its fused forward and the CPU.
+   first predict tile against its fused forward and the CPU;
+7. the pipeline users run: ``ISTPipeline(...).run()`` on a
+   ``make_synthetic`` slide of 10,000 cells and 400 genes (about 210k
+   transcripts) at ``PipelineConfig()`` (128-wide features, adaptive
+   tiles of 50,000 nodes, cell-mode candidates) and ``TrainConfig()``
+   width for 2 epochs: features, the whole-slide graph, tiles, fit,
+   predict and the segmentation table, with each stage's wall, the
+   launches of K1, K2, K3 and K5 counted and held to the captures and
+   replays, accuracy against the true cells above 0.6, one row per
+   transcript, a cell for exactly the transcripts with a candidate edge,
+   ``predict_streaming`` + ``write_dense`` equal to ``predict`` +
+   ``write``, and the accuracy on transcripts with two or more candidate
+   cells after training and with the initial weights; then K1, K2, K3
+   and K5 against their plain versions on the pipeline's own first
+   tiles (its predict tile's tables and variable-K candidate table with
+   its empty rows, its training tile's tables), timed, at phase 2's
+   tolerances.  The h5ad export is off there (``save_anndata=False``):
+   the GPU machine has no h5py.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel JSON record, and the line before that the card's
@@ -81,6 +98,10 @@ SCAN_STEPS = 4                    # phase 4c's TrainConfig.scan_steps
 FIRST_STEP_RTOL = 1e-2            # GPU vs CPU loss of the first step
 GRAPH_STEP_RTOL = 1e-3            # graphed vs eager loss of each step
 MEAN_STEP_RTOL = 2e-2             # GPU vs CPU mean loss of the CPU steps
+# phase 7: make_synthetic's slide at PERF.md's density, PipelineConfig()
+PIPE_CELLS, PIPE_GENES, PIPE_TX_PER_CELL = 10_000, 400, 20
+PIPE_EPOCHS = 2
+MIN_ACCURACY = 0.6                # against the true cells (test_e2e.py's)
 ROOT = Path(__file__).resolve().parent
 
 
@@ -163,7 +184,7 @@ def device_ms(fn, reps: int, kernel: str | None = None) -> float:
     then loses a few of them, and then the mean is over those it holds,
     at least half); with None, the sum over every device activity a call
     launches (a library call of several kernels), whose count must be a
-    multiple of ``reps``."""
+    multiple of ``reps`` or the same in two traces in a row."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -186,6 +207,10 @@ def device_ms(fn, reps: int, kernel: str | None = None) -> float:
         total = sum(e.self_device_time_total for e in events) / 1e3
         counts.append(count)
         if count and count % reps == 0 and (kernel is None or count == reps):
+            return total / reps
+        # a library call whose launches differ from call to call, with a
+        # trace that repeats: the window's device time over its calls
+        if kernel is None and count >= reps and counts[-2:] == [count] * 2:
             return total / reps
         if kernel and reps // 2 <= count < reps:
             partial = max(partial, (count, total))
@@ -731,6 +756,48 @@ def read_counts() -> dict:
             "banded": banded_edge_stage.launches}
 
 
+def first_tile(trainer, plan):
+    """The first tile of one batch plan, built on the trainer's device."""
+    return trainer._build_batch(plan, cache=False).to(
+        trainer.device).map_arrays(lambda a: a[0])
+
+
+def tile_tables(tile) -> list:
+    """One layer's edge-stage launches on a tile, named: its tt degree
+    segments, then tb."""
+    from segger_tpu_torch.models.encoder import tt_segments
+
+    segs = [(f"tt[{a}:{b}]", i, m) for a, b, i, m, _ in tt_segments(tile)]
+    segs.append(("tb", tile.tb.idx, tile.tb.mask))
+    return segs
+
+
+def expected_launches(trainer, caps, steps=0, epochs=0, fit_plans=(),
+                      val_plans=(), pplans=()) -> dict:
+    """The launches of ``steps`` training steps over ``fit_plans``'
+    bucket, ``epochs`` validation passes over ``val_plans`` and one
+    predict over ``pplans``, where ``caps`` counts the CUDA-graph captures
+    they made.  Every tile of a batch launches K1 (K2 and K3 when it
+    trains) once for each of ``tile_tables`` in each layer, and a
+    predicted tile K5 once; each replay and each capture's warm-up batch
+    launch, a capture itself nothing."""
+    cfg = trainer.cfg
+    n_layers = 2 + cfg.n_mid_layers
+    tps = cfg.tiles_per_step
+
+    def per_tile(plans):
+        return n_layers * len(tile_tables(first_tile(trainer, plans[0]))) \
+            if plans else 0
+
+    n_fit = (steps + caps["train"]) * tps * per_tile(fit_plans)
+    n_val = (epochs * len(val_plans) + caps["eval"]) * tps
+    n_pred = sum(len(s) for s, _ in pplans) + caps["predict"] * tps
+    return {"fwd": {"nokeep": n_val * per_tile(val_plans)
+                    + n_pred * per_tile(pplans), "prng": n_fit, "keep": 0},
+            "bwd": {"nokeep": 0, "prng": n_fit, "keep": 0},
+            "score": n_pred, "attn": 0, "banded": 0}
+
+
 def drive_keep_op(tile, heads, hc, dtype, rng):
     """K4's own path: the differentiable edge-stage op in keep mode,
     forward and backward, on each launch of one layer of a training
@@ -764,6 +831,149 @@ def drive_keep_op(tile, heads, hc, dtype, rng):
     return len(segs)
 
 
+def _accuracy(row_index, cell_id, truth, rows=None) -> float:
+    """Share of the transcripts that truly belong to a cell (and lie in
+    ``rows``, when given) whose assigned cell id is their own."""
+    import numpy as np
+
+    t = truth[row_index]
+    keep = t != ""
+    if rows is not None:
+        keep &= np.isin(row_index, rows)
+    return float((cell_id[keep] == t[keep]).mean())
+
+
+def drive_pipeline(out_dir, device=None, n_cells=PIPE_CELLS,
+                   n_genes=PIPE_GENES, epochs=PIPE_EPOCHS,
+                   tx_per_cell=PIPE_TX_PER_CELL, pipeline_kw=None,
+                   train_kw=None) -> dict:
+    """Phase 7: segment a ``make_synthetic`` slide through
+    ``ISTPipeline.run`` (features, whole-slide graph, tiles, fit, predict,
+    the segmentation table) with the kernel counts set to 0 just before
+    the run and read just after, then check the table: accuracy against
+    the true cells, one row per transcript, a cell for exactly the
+    transcripts with a candidate edge, and ``predict_streaming`` +
+    ``write_dense`` equal to the run's ``predict`` + ``write``.  Returns
+    the walls, the counts with the launches the run must have made on
+    CUDA, and the accuracies on transcripts with two or more candidate
+    cells after training and with the initial weights."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from segger_tpu_torch.data.partition import (
+        make_fit_tiles, make_predict_tiles,
+    )
+    from segger_tpu_torch.data.synthetic import make_synthetic
+    from segger_tpu_torch.data.writer import SegmentationWriter
+    from segger_tpu_torch.pipeline import ISTPipeline, PipelineConfig
+    from segger_tpu_torch.train.trainer import TrainConfig
+
+    cuda = device is None or torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    synth = make_synthetic(n_cells=n_cells, n_genes=n_genes,
+                           mean_tx_per_cell=tx_per_cell,
+                           extent=400.0 * float(np.sqrt(n_cells / 200)),
+                           seed=SEED)
+    walls = {"make-data": time.perf_counter() - t0}
+    pipe = ISTPipeline(synth.transcripts, synth.boundaries, synth.polygons,
+                       PipelineConfig(seed=SEED, **(pipeline_kw or {})))
+    cfg = TrainConfig(max_epochs=epochs, **(train_kw or {}))
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    reset_counts()
+    seg = pipe.run(out_dir, cfg, save_anndata=False, device=device)
+    if cuda:
+        torch.cuda.synchronize()
+    counts = read_counts()
+    # the run's own peak, above what the caller held before it
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20 if cuda \
+        else None
+    walls.update(pipe.walls)
+    g, tree, tr = pipe.graph, pipe.tree, pipe.trainer
+    caps = dict(tr.captures)
+
+    # the launches the run made, counted as phases 3 and 4 count them
+    fit_tiles = make_fit_tiles(g, tree,
+                               margin=pipe.cfg.tiling_margin_training)
+    ptiles = make_predict_tiles(g, tree,
+                                margin=pipe.cfg.tiling_margin_prediction)
+    train_tiles, val_tiles = tr.split_tiles(fit_tiles)
+    val_plans = tr._batch_plans(val_tiles)
+    fit_plans = tr._batch_plans(train_tiles, shuffle=True,
+                                rng=tr.epoch_streams(0)[0])
+    pplans = tr._batch_plans(ptiles, use_xlo=True)
+    want = expected_launches(tr, caps, steps=len(tr.step_log),
+                             epochs=epochs, fit_plans=fit_plans,
+                             val_plans=val_plans, pplans=pplans)
+
+    # the table
+    truth = np.asarray(synth.truth_cell)   # by row_index
+    rows = seg["row_index"].to_numpy()
+    ids = seg["segger_cell_id"].to_numpy(object)
+    n_cand = np.bincount(g.cand_src, minlength=g.n_tx)
+    with_cand = np.sort(g.tx_index[n_cand > 0])
+    multi = g.tx_index[n_cand >= 2]
+    acc = _accuracy(rows, ids, truth)
+    acc_multi = _accuracy(rows, ids, truth, multi)
+    if not (seg["row_index"].is_unique
+            and np.array_equal(np.sort(rows), np.sort(g.tx_index))):
+        raise AssertionError("pipeline: not one row per transcript")
+    if not np.array_equal(np.sort(rows[pd.notna(ids)]), with_cand):
+        raise AssertionError("pipeline: the transcripts with a cell are "
+                             "not those with a candidate edge")
+    if not acc > MIN_ACCURACY:
+        raise AssertionError(f"pipeline accuracy {acc} <= {MIN_ACCURACY}")
+
+    # predict_streaming + write_dense on the same trainer
+    t0 = time.perf_counter()
+    best_sim, best_enc = tr.predict_streaming(ptiles)
+    gene_by_row = np.zeros(best_sim.size, np.int32)
+    gene_by_row[g.tx_index] = g.tx_gene
+    dense = SegmentationWriter(Path(out_dir) / "dense",
+                               save_anndata=False).write_dense(
+        best_sim, best_enc, gene_by_row, cell_ids=g.bd_cell_id,
+        gene_names=pipe.adata.var.index.to_numpy().astype(str))
+    stream_s = time.perf_counter() - t0
+    a = seg.sort_values("row_index").reset_index(drop=True)
+    b = dense.sort_values("row_index").reset_index(drop=True)
+    ca = a["segger_cell_id"].astype(object).to_numpy()
+    cb = b["segger_cell_id"].astype(object).to_numpy()
+    na = pd.isna(ca)
+    if not (len(a) == len(b) > 0
+            and (a["row_index"].to_numpy() == b["row_index"].to_numpy()).all()
+            and (na == pd.isna(cb)).all() and (ca[~na] == cb[~na]).all()
+            and np.allclose(a["segger_similarity"], b["segger_similarity"],
+                            rtol=1e-6, atol=0)
+            and np.allclose(a["similarity_threshold"],
+                            b["similarity_threshold"], rtol=1e-6, atol=1e-9)
+            and (a["converged"].to_numpy() == b["converged"].to_numpy()).all()
+            and (a["segger_gene"].astype(object).to_numpy()
+                 == b["segger_gene"].astype(object).to_numpy()).all()):
+        raise AssertionError("pipeline: write_dense differs from write")
+
+    # the same prediction with the initial weights
+    tr.init()
+    p0 = tr.predict(ptiles)
+    enc0 = p0["cell_encoding"].astype(np.int64)
+    ids0 = np.where(enc0 >= 0, g.bd_cell_id[np.maximum(enc0, 0)], None)
+    acc0_multi = _accuracy(p0["row_index"].astype(np.int64), ids0, truth,
+                           multi)
+    return {"walls": walls, "stream_s": stream_s, "counts": counts,
+            "want": want, "captures": caps, "peak_mib": peak,
+            "n_tx": g.n_tx, "n_bd": g.n_bd, "n_tt": int(g.tt_src.size),
+            "n_cand": int(g.cand_src.size), "n_with_cand": with_cand.size,
+            "n_multi": int(multi.size), "n_tiles": (len(fit_tiles),
+                                                    len(ptiles)),
+            "epochs": epochs, "steps": len(tr.step_log),
+            "history": tr.history, "accuracy": acc,
+            "accuracy_multi": acc_multi, "accuracy_multi_init": acc0_multi,
+            # the first predict and training tiles, for the kernel checks
+            "cfg": tr.cfg, "tiles": (first_tile(tr, pplans[0]),
+                                     first_tile(tr, fit_plans[0]))}
+
+
 def main(argv) -> int:
     import torch
 
@@ -777,7 +987,6 @@ def main(argv) -> int:
     from segger_tpu_torch.data.partition import (
         build_tiling, make_fit_tiles, make_predict_tiles,
     )
-    from segger_tpu_torch.models.encoder import tt_segments
     from segger_tpu_torch.models.positional import dense
     from segger_tpu_torch.ops import _build
     from segger_tpu_torch.ops.banded import (
@@ -858,22 +1067,16 @@ def main(argv) -> int:
         idx, mask, 2_500, rng, f=cfg.out_channels)))
     # (b) the launches the main paths make on their first tile, on that
     # tile's own tables: one layer's tt segments and tb, and scoring
-    tile = trainer._build_batch(plans[0], cache=False).to(
-        "cuda").map_arrays(lambda a: a[0])
-    segs = [(f"tt[{a}:{b}]", i, m) for a, b, i, m, _ in tt_segments(tile)]
-    segs.append(("tb", tile.tb.idx, tile.tb.mask))
+    tile = first_tile(trainer, plans[0])
+    segs = tile_tables(tile)
     for name, i, m in segs:
         checks.append(("K1", f"tile {name}", check_edge_stage(
             i, m, tile.n_tx, bf16, rng, heads, hc)))
     checks.append(("K5", "tile cand", check_score(
         tile.cand.idx, tile.cand.mask, tile.n_bd, rng,
         f=cfg.out_channels)))
-    ttile = trainer._build_batch(fit_plans[0], cache=False).to(
-        "cuda").map_arrays(lambda a: a[0])
-    tsegs = [(f"tt[{a}:{b}]", i, m)
-             for a, b, i, m, _ in tt_segments(ttile)]
-    tsegs.append(("tb", ttile.tb.idx, ttile.tb.mask))
-    for name, i, m in tsegs:
+    ttile = first_tile(trainer, fit_plans[0])
+    for name, i, m in tile_tables(ttile):
         where = f"train tile {name}"
         checks.append(("K2", where, check_edge_stage(
             i, m, ttile.n_tx, bf16, rng, heads, hc, "prng")))
@@ -928,13 +1131,7 @@ def main(argv) -> int:
           f"captures {caps}, launches {predict_counts}")
     if caps != {"train": 0, "eval": 0, "predict": 1}:
         raise AssertionError(f"predict captures {caps}, expected one")
-    # the replays, and the warm-up of the one capture (one batch of
-    # tiles_per_step tiles); the capture itself launches nothing
-    n_run = n_tiles + cfg.tiles_per_step
-    want = {"fwd": {"nokeep": n_run * n_layers * len(segs), "prng": 0,
-                    "keep": 0},
-            "bwd": {"nokeep": 0, "prng": 0, "keep": 0}, "score": n_run,
-            "attn": 0, "banded": 0}
+    want = expected_launches(trainer, caps, pplans=plans)
     if predict_counts != want:
         raise AssertionError(f"launches {predict_counts}, expected {want}")
     rows = np.sort(got["row_index"])
@@ -996,17 +1193,9 @@ def main(argv) -> int:
     if not (fit_caps["predict"] == 0 and 1 <= fit_caps["train"]
             <= TRAIN_EPOCHS and fit_caps["eval"] == 1):
         raise AssertionError(f"fit captures {fit_caps}")
-    per_step = cfg.tiles_per_step * n_layers * len(tsegs)
-    # a val batch launches (lo + hi, or one tt segment) + tb per layer
-    per_val = cfg.tiles_per_step * n_layers * (
-        3 if val_plans[0][1].n_lo else 2)
-    n_val = TRAIN_EPOCHS * len(val_plans)
-    # the replays and each capture's warm-up step
-    n_train = len(steps) + fit_caps["train"]
-    want = {"fwd": {"nokeep": (n_val + fit_caps["eval"]) * per_val,
-                    "prng": n_train * per_step, "keep": 0},
-            "bwd": {"nokeep": 0, "prng": n_train * per_step, "keep": 0},
-            "score": 0, "attn": 0, "banded": 0}
+    want = expected_launches(trainer, fit_caps, steps=len(steps),
+                             epochs=TRAIN_EPOCHS, fit_plans=fit_plans,
+                             val_plans=val_plans)
     if fit_counts != want:
         raise AssertionError(f"fit launches {fit_counts}, expected {want}")
     if len(steps) != TRAIN_EPOCHS * len(fit_plans) or not all(
@@ -1039,6 +1228,9 @@ def main(argv) -> int:
                                            weights)[0])
         eager_s.append(time.perf_counter() - t0)
     eager_counts = read_counts()
+    eager_want = expected_launches(
+        eager, dict.fromkeys(eager.captures, 0), steps=len(eager_loss),
+        fit_plans=fit_plans)
     del eager
     graph_loss = [rec[0] for ep, rec, _ in steps if ep == 0]
     rel = [abs(g - e) / abs(e) for g, e in zip(graph_loss, eager_loss)]
@@ -1051,9 +1243,9 @@ def main(argv) -> int:
     if len(eager_loss) != len(graph_loss) or graph_loss[0] != eager_loss[0] \
             or max(rel) > GRAPH_STEP_RTOL:
         raise AssertionError("graphed and eager training disagree")
-    if eager_counts["fwd"]["prng"] != len(eager_loss) * per_step or \
-            eager_counts["bwd"]["prng"] != len(eager_loss) * per_step:
-        raise AssertionError(f"eager epoch launches {eager_counts}")
+    if eager_counts != eager_want:
+        raise AssertionError(f"eager epoch launches {eager_counts}, "
+                             f"expected {eager_want}")
 
     # -- phase 4c: the same fit from the same initial weights with the
     # loss rows read back SCAN_STEPS steps at a time
@@ -1192,6 +1384,65 @@ def main(argv) -> int:
     for kernel, where, r in checks[-2:]:
         print(f"{kernel} [{where}] " + json.dumps(r))
 
+    # -- phase 7: the pipeline users run, transcripts and polygons to the
+    # segmentation table, at PipelineConfig() and TrainConfig() widths
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        pipe = drive_pipeline(out_dir)
+    pipe_counts = pipe["counts"]
+    walls = {k: round(v, 3) for k, v in pipe["walls"].items()}
+    print(f"pipeline: make_synthetic({PIPE_CELLS} cells, {PIPE_GENES} "
+          f"genes, {PIPE_TX_PER_CELL} tx a cell) -> {pipe['n_tx']} tx, "
+          f"{pipe['n_bd']} cells, {pipe['n_tt']} tt edges, "
+          f"{pipe['n_cand']} candidates ({pipe['n_with_cand']} tx with one "
+          f"or more, {pipe['n_multi']} with two or more); "
+          f"{pipe['n_tiles'][0]} fit and {pipe['n_tiles'][1]} predict "
+          f"tiles; {pipe['epochs']} epochs, {pipe['steps']} steps; "
+          f"save_anndata=False (this machine has no h5py)")
+    print(f"pipeline walls (s): {json.dumps(walls)}; predict_streaming + "
+          f"write_dense {pipe['stream_s']:.3f} s; max_memory_allocated "
+          f"{pipe['peak_mib']:.1f} MiB above the earlier phases' "
+          f"tensors; captures {pipe['captures']}")
+    for rec in pipe["history"]:
+        print("pipeline fit epoch " + json.dumps(rec))
+    print(f"pipeline accuracy: {pipe['accuracy']:.4f} of the transcripts "
+          f"of a cell (need > {MIN_ACCURACY}); on the {pipe['n_multi']} "
+          f"with two or more candidate cells {pipe['accuracy_multi']:.4f} "
+          f"trained, {pipe['accuracy_multi_init']:.4f} with the initial "
+          f"weights (recorded, not held); write_dense equals write")
+    print(f"pipeline launches {pipe_counts}")
+    if not (pipe["captures"]["predict"] == 1 and pipe["captures"]["eval"]
+            == 1 and 1 <= pipe["captures"]["train"] <= PIPE_EPOCHS):
+        raise AssertionError(f"pipeline captures {pipe['captures']}")
+    if pipe_counts != pipe["want"]:
+        raise AssertionError(f"pipeline launches {pipe_counts}, expected "
+                             f"{pipe['want']}")
+    # the kernels against their plain versions on the pipeline's own
+    # first tiles: K1 on the predict tile's tables, K5 on its variable-K
+    # candidate table with its empty rows, K2 and K3 on the training tile
+    ptile, ftile = pipe["tiles"]
+    pcfg = pipe["cfg"]
+    p_heads = pcfg.n_heads
+    p_hc = pcfg.n_heads * pcfg.hidden_channels
+    n_checked = len(checks)
+    for name, i, m in tile_tables(ptile):
+        checks.append(("K1", f"pipeline tile {name}", check_edge_stage(
+            i, m, ptile.n_tx, bf16, rng, p_heads, p_hc)))
+    checks.append(("K5", "pipeline tile cand", check_score(
+        ptile.cand.idx, ptile.cand.mask, ptile.n_bd, rng,
+        f=pcfg.out_channels)))
+    for name, i, m in tile_tables(ftile):
+        where = f"pipeline train tile {name}"
+        checks.append(("K2", where, check_edge_stage(
+            i, m, ftile.n_tx, bf16, rng, p_heads, p_hc, "prng")))
+        for mode in ("prng", "nokeep"):
+            checks.append(("K3", where, check_edge_stage_bwd(
+                i, m, ftile.n_tx, bf16, rng, p_heads, p_hc, mode)))
+    for kernel, where, r in checks[n_checked:]:
+        print(f"{kernel} [{where}] " + json.dumps(r))
+    del ptile, ftile, pipe["tiles"]
+
     def summary(kernel, tile_prefix, modes=None):
         rs = [r for k, w, r in checks if k == kernel]
         tile_rs = [r for k, w, r in checks if k == kernel
@@ -1209,8 +1460,16 @@ def main(argv) -> int:
             "shape": " + ".join(f"{r['n']}x{r['k']}" for r in tile_rs),
         }
 
+    def on_pipeline(kernel, tile_prefix, modes=None):
+        """One layer's launches on the pipeline's first tile."""
+        rec = summary(kernel, tile_prefix, modes)
+        del rec["max_abs_err"]      # the kernel's own covers every check
+        return rec
+
     sc_tile = [r for k, w, r in checks if k == "K5"
                and w.startswith("tile")][0]
+    sc_pipe = [r for k, w, r in checks if k == "K5"
+               and w.startswith("pipeline tile")][0]
     # device memory a slide-table call takes beyond its output
     slide_extra = {k: r["extra_bytes"] for k, w, r in checks
                    if w == "slide"}
@@ -1220,20 +1479,33 @@ def main(argv) -> int:
         {"name": "edge_stage_fwd", "route": "cuda",
          "source": src + "edge_stage_fwd.cu", "replaces": f"{pg}:175",
          "launches": predict_counts["fwd"]["nokeep"]
-         + fit_counts["fwd"]["nokeep"] + fwd_counts["fwd"]["nokeep"],
+         + fit_counts["fwd"]["nokeep"] + fwd_counts["fwd"]["nokeep"]
+         + pipe_counts["fwd"]["nokeep"],
          "launches_by_path": {"predict": predict_counts["fwd"]["nokeep"],
                               "fit": fit_counts["fwd"]["nokeep"],
-                              "forward-only": fwd_counts["fwd"]["nokeep"]},
-         **summary("K1", "tile"), "library_ms": None},
+                              "forward-only": fwd_counts["fwd"]["nokeep"],
+                              "pipeline": pipe_counts["fwd"]["nokeep"]},
+         **summary("K1", "tile"), "library_ms": None,
+         "pipeline_tile": on_pipeline("K1", "pipeline tile")},
         {"name": "edge_stage_fwd_prng", "route": "cuda",
          "source": src + "edge_stage_fwd.cu", "replaces": f"{pg}:226",
-         "launches": fit_counts["fwd"]["prng"],
-         **summary("K2", "train tile"), "library_ms": None},
+         "launches": fit_counts["fwd"]["prng"] + pipe_counts["fwd"]["prng"],
+         "launches_by_path": {"fit": fit_counts["fwd"]["prng"],
+                              "pipeline": pipe_counts["fwd"]["prng"]},
+         **summary("K2", "train tile"), "library_ms": None,
+         "pipeline_tile": on_pipeline("K2", "pipeline train tile")},
         {"name": "edge_stage_bwd", "route": "cuda",
          "source": src + "edge_stage_bwd.cu",
          "replaces": f"{pg}:309", "also_replaces": f"{pg}:334",
-         "launches": fit_counts["bwd"]["prng"] + fit_counts["bwd"]["nokeep"],
-         **summary("K3", "train tile", ("prng",)), "library_ms": None},
+         "launches": fit_counts["bwd"]["prng"] + fit_counts["bwd"]["nokeep"]
+         + pipe_counts["bwd"]["prng"] + pipe_counts["bwd"]["nokeep"],
+         "launches_by_path": {"fit": fit_counts["bwd"]["prng"]
+                              + fit_counts["bwd"]["nokeep"],
+                              "pipeline": pipe_counts["bwd"]["prng"]
+                              + pipe_counts["bwd"]["nokeep"]},
+         **summary("K3", "train tile", ("prng",)), "library_ms": None,
+         "pipeline_tile": on_pipeline("K3", "pipeline train tile",
+                                      ("prng",))},
         {"name": "edge_stage_keep", "route": "cuda",
          "source": src + "edge_stage_bwd.cu",
          "also_source": src + "edge_stage_fwd.cu",
@@ -1244,10 +1516,16 @@ def main(argv) -> int:
         {"name": "score_max", "route": "cuda",
          "source": src + "score.cu",
          "replaces": "segger_tpu/ops/pallas/score.py:60",
-         "launches": predict_counts["score"], **summary("K5", "tile"),
+         "launches": predict_counts["score"] + pipe_counts["score"],
+         "launches_by_path": {"predict": predict_counts["score"],
+                              "pipeline": pipe_counts["score"]},
+         **summary("K5", "tile"),
          "library_ms": sc_tile["library_ms"],
          "library_device_ms": sc_tile["library_device_ms"],
-         "layout": sc_tile["layout"]},
+         "layout": sc_tile["layout"],
+         "pipeline_tile": {**on_pipeline("K5", "pipeline tile"),
+                           "library_device_ms": sc_pipe["library_device_ms"],
+                           "empty_rows": sc_pipe["empty_rows"]}},
         {"name": "gatv2_attention", "route": "cuda",
          "source": src + "attn_fwd.cu",
          "replaces": "segger_tpu/ops/pallas/gatv2_attn.py:57",

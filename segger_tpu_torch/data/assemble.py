@@ -1,14 +1,27 @@
-"""Whole-slide heterogeneous graph container (host side).
+"""Whole-slide heterogeneous graph assembly (host side).
 
-:class:`HostGraph` holds two node sets and three edge sets as NumPy
-arrays; tiling slices it.  Its builder from vendor tables waits for a
-later slice of the port.
+The analogue of the reference's ``setup_heterodata``
+(reference: src/segger/data/utils/heterodata.py:18-164): joins
+gene/cell encodings + clusters onto transcripts, orders boundaries by
+feature-table order, and builds the three edge types as COO arrays in a
+NumPy structure-of-arrays :class:`HostGraph`; tiling slices it.  The
+columnar builder and the graph's save/load wait for a later slice.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
+import pandas as pd
+
+from ..compat.anndata_lite import AnnDataLite
+from ..io.fields import TrainingTranscriptFields
+from .neighbors_host import (
+    prediction_graph,
+    segmentation_graph,
+    transcripts_graph,
+)
 
 
 @dataclass
@@ -53,3 +66,133 @@ class HostGraph:
     @property
     def n_genes(self) -> int:
         return len(self.gene_embedding)
+
+
+def build_host_graph(
+    transcripts: pd.DataFrame,
+    adata: AnnDataLite,
+    segmentation_mask: np.ndarray,
+    cells_embedding_key: str = "X_pca",
+    transcripts_graph_max_k: int = 5,
+    transcripts_graph_max_dist: float = 5.0,
+    prediction_graph_mode: str = "cell",
+    prediction_graph_max_k: int = 3,
+    prediction_graph_buffer_ratio: float = 0.05,
+    polygons: Optional[list] = None,
+    polygon_cell_ids: Optional[np.ndarray] = None,
+) -> HostGraph:
+    """Assemble the whole-slide graph.
+
+    ``polygons`` (+ their cell ids) are required for 'cell'/'nucleus'
+    prediction modes; 'uniform' uses centroids only.
+    """
+    tx_f = TrainingTranscriptFields()
+
+    # gene encoding / cluster join (heterodata.py:50-69); genes filtered
+    # out of the feature table map to -1 and are dropped from the graph
+    gene_enc = pd.Series(
+        adata.var[tx_f.gene_encoding].to_numpy(), index=adata.var.index
+    )
+    gene_clu = pd.Series(
+        np.asarray(adata.var["phenograph_cluster"]), index=adata.var.index
+    )
+    feats = transcripts[tx_f.feature].astype(str)
+    tx_gene = feats.map(gene_enc).fillna(-1).to_numpy(np.int64)
+    keep = tx_gene >= 0
+    transcripts = transcripts[keep].reset_index(drop=True)
+    segmentation_mask = np.asarray(segmentation_mask)[keep]
+    tx_gene = tx_gene[keep]
+    tx_cluster = (
+        feats[keep].map(gene_clu).fillna(-1).to_numpy(np.int64)
+    )
+
+    # cell encoding join for masked transcripts (heterodata.py:71-95)
+    cell_enc = pd.Series(
+        adata.obs[tx_f.cell_encoding].to_numpy(), index=adata.obs.index
+    )
+    vendor = transcripts[tx_f.cell_id].astype("string")
+    joined = vendor.map(cell_enc)
+    tx_cell_encoding = np.where(
+        segmentation_mask & joined.notna().to_numpy(),
+        joined.fillna(-1).to_numpy(np.float64),
+        -1,
+    ).astype(np.int64)
+
+    tx_pos = transcripts[[tx_f.x, tx_f.y]].to_numpy(np.float32)
+    tx_index = transcripts[tx_f.row_index].to_numpy(np.int64)
+
+    # boundary nodes in feature-table (cell_encoding) order
+    # (heterodata.py:104-134)
+    bd_x = np.asarray(adata.obsm[cells_embedding_key], dtype=np.float32)
+    bd_pos = np.asarray(adata.obsm["X_spatial"], dtype=np.float32)
+    bd_cluster = np.asarray(
+        adata.obs["phenograph_cluster"], dtype=np.int64
+    )
+    bd_index = adata.obs[tx_f.cell_encoding].to_numpy(np.int64)
+    bd_cell_id = adata.obs.index.to_numpy().astype(str)
+
+    # edges
+    tt_src, tt_dst = transcripts_graph(
+        tx_pos, max_k=transcripts_graph_max_k,
+        max_dist=transcripts_graph_max_dist,
+    )
+    sg_src, sg_dst = segmentation_graph(tx_cell_encoding, segmentation_mask)
+
+    if prediction_graph_mode in ("cell", "nucleus"):
+        if polygons is None or polygon_cell_ids is None:
+            raise ValueError(
+                f"prediction_graph_mode='{prediction_graph_mode}' needs "
+                "polygons + polygon_cell_ids"
+            )
+        # order polygons by boundary (cell_encoding) order; cells without
+        # a polygon get no candidates
+        by_id = {cid: p for cid, p in zip(polygon_cell_ids, polygons)}
+        poly_list, poly_rows = [], []
+        for row, cid in enumerate(bd_cell_id):
+            p = by_id.get(cid)
+            if p is not None:
+                poly_list.append(np.asarray(p))
+                poly_rows.append(row)
+        cand_src, cand_poly = prediction_graph(
+            tx_pos, bd_pos, mode=prediction_graph_mode,
+            max_k=prediction_graph_max_k,
+            buffer_ratio=prediction_graph_buffer_ratio,
+            polygons=poly_list,
+        )
+        poly_rows = np.asarray(poly_rows, dtype=np.int64)
+        cand_dst = poly_rows[cand_poly]
+    else:
+        cand_src, cand_dst = prediction_graph(
+            tx_pos, bd_pos, mode="uniform", max_k=prediction_graph_max_k,
+        )
+
+    # supplementary model data
+    gene_embedding = np.asarray(adata.varm["X_corr"], dtype=np.float32)
+    tx_similarity = np.asarray(
+        adata.uns["gene_cluster_similarities"], dtype=np.float32
+    )
+    bd_similarity = np.asarray(
+        adata.uns["cell_cluster_similarities"], dtype=np.float32
+    )
+
+    return HostGraph(
+        tx_gene=tx_gene.astype(np.int32),
+        tx_pos=tx_pos,
+        tx_cluster=tx_cluster.astype(np.int32),
+        tx_index=tx_index,
+        tx_cell_encoding=tx_cell_encoding,
+        bd_x=bd_x,
+        bd_pos=bd_pos,
+        bd_cluster=bd_cluster.astype(np.int32),
+        bd_index=bd_index,
+        bd_cell_id=bd_cell_id,
+        tt_src=tt_src,
+        tt_dst=tt_dst,
+        sg_src=sg_src,
+        sg_dst=sg_dst,
+        cand_src=cand_src,
+        cand_dst=cand_dst,
+        gene_embedding=gene_embedding,
+        tx_similarity=tx_similarity,
+        bd_similarity=bd_similarity,
+    )

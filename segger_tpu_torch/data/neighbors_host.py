@@ -1,9 +1,19 @@
-"""Host-side spatial kNN (SciPy KDTree).
+"""Host-side spatial graph construction: chunked KDTree kNN and the three
+edge types of the heterogeneous graph
+(reference: src/segger/data/utils/neighbors.py:122-238).
 
-The transcript kNN includes the query point itself, and neighbors beyond
-``max_dist`` are dropped.  The C++ uniform-grid kNN of the JAX package
-(``csrc/spatial.cpp``) waits for a later slice; this is its KDTree
-branch.
+  - the transcript kNN includes the query point itself (the tx graph
+    carries self loops), as ``(src=query_row, dst=neighbor)`` pairs;
+    neighbors beyond ``max_dist`` are dropped
+  - supervision edges come straight off the vendor cell-id column for
+    compartment-masked transcripts (neighbors.py:183-197)
+  - prediction candidates: 'uniform' = k nearest transcripts per cell
+    centroid; 'cell'/'nucleus' = containment in polygons buffered outward
+    by sqrt(area/pi)*buffer_ratio (neighbors.py:200-238), oriented
+    ``(tx, bd)`` in every mode
+
+The C++ uniform-grid kNN of the JAX package (``csrc/spatial.cpp``) waits
+for a later slice; this is its KDTree branch.
 """
 from __future__ import annotations
 
@@ -44,3 +54,82 @@ def kdtree_neighbors(
         np.concatenate(rows_out).astype(np.int32),
         np.concatenate(cols_out).astype(np.int32),
     )
+
+
+def transcripts_graph(
+    tx_pos: np.ndarray, max_k: int = 5, max_dist: float = 5.0
+) -> Tuple[np.ndarray, np.ndarray]:
+    """tx->tx spatial kNN edges ``(src, dst)``
+    (reference: neighbors.py:166-180; defaults data_module.py:145-146)."""
+    return kdtree_neighbors(tx_pos, max_k=max_k, max_dist=max_dist)
+
+
+def segmentation_graph(
+    tx_cell_encoding: np.ndarray, segmentation_mask: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray]:
+    """tx->bd supervision edges: (row_id, cell_encoding) for masked
+    transcripts with a known cell (reference: neighbors.py:183-197)."""
+    mask = np.asarray(segmentation_mask) & (tx_cell_encoding >= 0)
+    src = np.where(mask)[0].astype(np.int32)
+    dst = tx_cell_encoding[mask].astype(np.int32)
+    return src, dst
+
+
+def prediction_graph(
+    tx_pos: np.ndarray,
+    bd_centroids: np.ndarray,
+    mode: str = "cell",
+    max_k: int = 3,
+    buffer_ratio: float = 0.05,
+    polygons: Optional[list] = None,
+    polygon_areas: Optional[np.ndarray] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """tx->bd candidate edges ``(tx_src, bd_dst)``
+    (reference: neighbors.py:200-238).
+
+    'uniform': k nearest transcripts of each cell centroid.
+    'cell'/'nucleus': transcripts within each polygon buffered outward by
+    ``sqrt(area/pi) * buffer_ratio``, as distance-to-polygon <= buffer
+    (:func:`..geometry.query.points_in_polygons`).
+    """
+    if mode == "uniform":
+        rows, cols = kdtree_neighbors(
+            tx_pos, max_k=max_k, query=bd_centroids
+        )
+        # rows are bd indices, cols are tx indices -> reorient to (tx, bd)
+        return cols, rows
+    if mode in ("cell", "nucleus"):
+        if polygons is None:
+            raise ValueError(f"mode='{mode}' requires polygons")
+        from ..geometry.query import points_in_polygons
+
+        areas = (
+            polygon_areas
+            if polygon_areas is not None
+            else polygon_areas_batch(polygons)
+        )
+        buffers = np.sqrt(np.maximum(areas, 0) / np.pi) * buffer_ratio
+        return points_in_polygons(tx_pos, polygons, distances=buffers)
+    raise ValueError(f"Unrecognized prediction graph mode: '{mode}'.")
+
+
+def polygon_areas_batch(polygons) -> np.ndarray:
+    """Shoelace areas for a ragged list of (nv, 2) vertex arrays in one
+    vectorized pass."""
+    n = len(polygons)
+    if n == 0:
+        return np.zeros(0)
+    counts = np.fromiter((len(p) for p in polygons), np.int64, count=n)
+    v = np.concatenate(
+        [np.asarray(p, np.float64).reshape(-1, 2) for p in polygons]
+    )
+    if v.shape[0] == 0:
+        return np.zeros(n)
+    starts = np.concatenate(([0], np.cumsum(counts)))
+    # next vertex within each ring: roll each segment by -1
+    nxt = np.arange(1, v.shape[0] + 1)
+    nxt[starts[1:] - 1] = starts[:-1]
+    cross = v[:, 0] * v[nxt, 1] - v[:, 1] * v[nxt, 0]
+    sums = np.add.reduceat(cross, starts[:-1])
+    sums[counts == 0] = 0.0
+    return 0.5 * np.abs(sums)

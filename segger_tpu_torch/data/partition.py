@@ -34,11 +34,62 @@ class TileSpec:
     n_edges: int = 0          # message-passing edges (for bin packing)
 
 
-def build_tiling(graph: HostGraph, nodes_per_tile: int = 50_000) -> QuadTree:
-    """Density-adaptive quadtree over tx+bd positions jointly, capping
-    the nodes of each leaf."""
+def build_tiling(
+    graph: HostGraph,
+    nodes_per_tile: int = 50_000,
+    mode: str = "adaptive",
+    side_length: float = 250.0,
+) -> QuadTree:
+    """Tiling over tx+bd positions jointly
+    (reference: data_module.py:242-262).
+
+    ``mode='adaptive'``: density-adaptive quadtree capping nodes/tile.
+    ``mode='square'``: fixed-size grid (the reference keeps this for
+    benchmarking only; tiling.py:238-300) — expressed as a QuadTree with
+    grid leaves so downstream code is identical.
+    """
     pos = np.vstack([graph.tx_pos, graph.bd_pos])
-    return QuadTree.build(pos, max_leaf_size=nodes_per_tile)
+    if mode == "adaptive":
+        return QuadTree.build(pos, max_leaf_size=nodes_per_tile)
+    if mode == "square":
+        return square_tiling(pos, side_length)
+    raise ValueError(f"Unrecognized tiling strategy: '{mode}'.")
+
+
+def square_tiling(pos: np.ndarray, side_length: float) -> QuadTree:
+    """Fixed-size grid tiling as a QuadTree-shaped object
+    (reference: tiling.py:238-300).  The bounds are taken in float64:
+    the root box's top edge lies ``1e-9 * extent`` beyond the last point,
+    which a float32 sum rounds away (the JAX package's square tiling of a
+    float32 graph leaves that point outside every leaf and raises)."""
+    pos = np.asarray(pos, dtype=np.float64)
+    x0, y0 = pos.min(axis=0)
+    x1, y1 = pos.max(axis=0)
+    eps = max(x1 - x0, y1 - y0, 1.0) * 1e-9
+    x1, y1 = x1 + eps, y1 + eps
+    nx = max(1, int(np.ceil((x1 - x0) / side_length)))
+    ny = max(1, int(np.ceil((y1 - y0) / side_length)))
+    leaves = []
+    for gy in range(ny):
+        for gx in range(nx):
+            leaves.append(
+                (
+                    x0 + gx * side_length,
+                    y0 + gy * side_length,
+                    min(x0 + (gx + 1) * side_length, x1),
+                    min(y0 + (gy + 1) * side_length, y1),
+                )
+            )
+    tree = QuadTree(
+        bounds=np.array([x0, y0, x1, y1]),
+        leaf_bounds=np.array(leaves, dtype=np.float64),
+        leaf_counts=np.zeros(len(leaves), dtype=np.int64),
+        max_leaf_size=0,
+    )
+    tree.leaf_counts = np.bincount(
+        tree.label(pos), minlength=tree.n_leaves
+    )
+    return tree
 
 
 def _group_rows_by_label(labels: np.ndarray, n_groups: int,

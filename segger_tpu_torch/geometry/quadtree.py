@@ -129,6 +129,18 @@ class QuadTree:
             active = inside & (self.node_leaf[node] < 0)
         return np.where(inside, self.node_leaf[node], -1)
 
+    def is_exactly_once(self, points: np.ndarray) -> bool:
+        """Validity check (reference: quadtree.py:261-270): every point
+        inside the root box hits exactly one leaf, every other none."""
+        points = np.asarray(points, dtype=np.float64)
+        x, y = points[:, 0], points[:, 1]
+        hits = np.zeros(len(points), dtype=np.int64)
+        for (x0, y0, x1, y1) in self.leaf_bounds:
+            hits += (x >= x0) & (x < x1) & (y >= y0) & (y < y1)
+        rx0, ry0, rx1, ry1 = self.bounds
+        inside = (x >= rx0) & (x < rx1) & (y >= ry0) & (y < ry1)
+        return bool((hits[inside] == 1).all() and (hits[~inside] == 0).all())
+
     def shrunk_mask(
         self, points: np.ndarray, labels: np.ndarray, margin: float
     ) -> np.ndarray:

@@ -1,6 +1,8 @@
 """The port stands alone: ``segger_tpu_torch`` and ``chip_smoke.py``
-import neither JAX nor the JAX package, and a small fit and prediction
-run with both blocked."""
+import neither JAX nor the JAX package, nothing of scikit-learn or h5py
+at module level (the GPU machine has neither), and a small fit and
+prediction, and the segmentation pipeline from a synthetic slide to its
+table, run with all of them blocked."""
 import ast
 import subprocess
 import sys
@@ -11,6 +13,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "flax", "optax", "segger_tpu")
+# absent on the GPU machine: imported, if at all, inside the functions
+# that need them
+NOT_ON_CARD = ("sklearn", "h5py")
 
 _SCRIPT = textwrap.dedent("""
     import sys
@@ -69,7 +74,23 @@ _SCRIPT = textwrap.dedent("""
         emb = tr.model(tile, capture_attention=True, intermediates=inter)
     assert torch.isfinite(emb["tx"]).all()
     assert sum(k.endswith("/attention") for k in inter) == 4  # 2 layers
-    assert not any(m == "jax" or m.startswith(("jax.", "flax", "optax"))
+
+    # the segmentation pipeline (chip_smoke.py's phase 7, small, on the
+    # CPU): make_synthetic -> ISTPipeline.load() -> run(device="cpu",
+    # save_anndata=False) -> the checks of the table
+    import tempfile
+    with tempfile.TemporaryDirectory() as out:
+        r = chip_smoke.drive_pipeline(
+            out, device="cpu", n_cells=60, n_genes=20, epochs=1,
+            pipeline_kw=dict(cells_embedding_size=8, genes_min_counts=5,
+                             cells_min_counts=3, tiling_nodes_per_tile=600,
+                             prediction_graph_buffer_ratio=0.2),
+            train_kw=dict(hidden_channels=16, out_channels=16,
+                          n_mid_layers=0))
+    assert r["accuracy"] > 0.6 and r["n_tiles"][1] > 1
+    assert set(r["walls"]) == {{"make-data", "features", "graph", "tiling",
+                               "fit", "predict", "write"}}
+    assert not any(m.split(".")[0] in {blocked!r}
                    for m in sys.modules if sys.modules[m] is not None)
     print("OK")
 """)
@@ -78,29 +99,38 @@ _SCRIPT = textwrap.dedent("""
 def test_port_predicts_with_jax_blocked():
     res = subprocess.run(
         [sys.executable, "-c",
-         _SCRIPT.format(blocked=BLOCKED, root=str(ROOT))],
+         _SCRIPT.format(blocked=BLOCKED + NOT_ON_CARD, root=str(ROOT))],
         capture_output=True, text=True, timeout=300, cwd=ROOT,
     )
     assert res.returncode == 0 and "OK" in res.stdout, res.stderr[-3000:]
 
 
-def _imported_modules(path: Path):
+def _imported_modules(path: Path, top_level_only: bool = False):
     tree = ast.parse(path.read_text(), filename=str(path))
-    for node in ast.walk(tree):
+    nodes = tree.body if top_level_only else ast.walk(tree)
+    for node in nodes:
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module
 
 
-@pytest.mark.parametrize(
-    "path",
-    sorted((ROOT / "segger_tpu_torch").rglob("*.py"))
-    + [ROOT / "chip_smoke.py", ROOT / "tools" / "bwd_device_ms.py",
-       ROOT / "tools" / "fwd_phase_ms.py"],
-    ids=lambda p: str(p.relative_to(ROOT)),
-)
+PORT_FILES = sorted((ROOT / "segger_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tools" / "bwd_device_ms.py",
+    ROOT / "tools" / "fwd_phase_ms.py", ROOT / "tools" / "pipeline_scale.py"]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in BLOCKED]
     assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_level_sklearn_or_h5py(path):
+    bad = [m for m in _imported_modules(path, top_level_only=True)
+           if m.split(".")[0] in NOT_ON_CARD]
+    assert not bad, f"{path} imports {bad} at module level"
