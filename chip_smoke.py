@@ -68,7 +68,19 @@ Phases (any failure exits non-zero; nothing is caught):
    tiles (its predict tile's tables and variable-K candidate table with
    its empty rows, its training tile's tables), timed, at phase 2's
    tolerances.  The h5ad export is off there (``save_anndata=False``):
-   the GPU machine has no h5py.
+   the GPU machine has no h5py;
+8. the command line users run: phase 7's slide written as a raw Xenium
+   v2 directory (``write_xenium_like``), then ``segger-tpu-torch segment
+   --no-anndata --max-epochs 2 --seed 0`` on it in this process, and
+   ``export transcripts boundaries`` on its output, with each stage's
+   wall (write-vendor, read, features + graph, fit, predict, write,
+   export-boundaries): the graph the command builds from the vendor
+   files equals phase 7's (integer arrays exactly, floats within 1e-6),
+   the table passes phase 7's checks, the launches of K1, K2, K3 and K5
+   equal the run's captures and replays, the boundaries go through the
+   export's process pool started by spawn (CUDA is initialized), and
+   more than 90 % of the cells export kept have a ring of three or more
+   vertices.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel JSON record, and the line before that the card's
@@ -79,6 +91,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -843,6 +856,72 @@ def _accuracy(row_index, cell_id, truth, rows=None) -> float:
     return float((cell_id[keep] == t[keep]).mean())
 
 
+def pipeline_slide(n_cells=PIPE_CELLS, n_genes=PIPE_GENES,
+                   tx_per_cell=PIPE_TX_PER_CELL):
+    """Phases 7 and 8's slide: ``make_synthetic`` at constant density."""
+    import numpy as np
+
+    from segger_tpu_torch.data.synthetic import make_synthetic
+
+    return make_synthetic(n_cells=n_cells, n_genes=n_genes,
+                          mean_tx_per_cell=tx_per_cell,
+                          extent=400.0 * float(np.sqrt(n_cells / 200)),
+                          seed=SEED)
+
+
+def run_launches(pipe, tr, epochs):
+    """The launches a fit of ``epochs`` and one predict by ``tr`` over
+    ``pipe``'s graph and tiling made on CUDA, counted as phases 3 and 4
+    count them, with the run's tiles and batch plans."""
+    from segger_tpu_torch.data.partition import (
+        make_fit_tiles, make_predict_tiles,
+    )
+
+    g, tree = pipe.graph, pipe.tree
+    fit_tiles = make_fit_tiles(g, tree,
+                               margin=pipe.cfg.tiling_margin_training)
+    ptiles = make_predict_tiles(g, tree,
+                                margin=pipe.cfg.tiling_margin_prediction)
+    train_tiles, val_tiles = tr.split_tiles(fit_tiles)
+    val_plans = tr._batch_plans(val_tiles)
+    fit_plans = tr._batch_plans(train_tiles, shuffle=True,
+                                rng=tr.epoch_streams(0)[0])
+    pplans = tr._batch_plans(ptiles, use_xlo=True)
+    want = expected_launches(tr, dict(tr.captures), steps=len(tr.step_log),
+                             epochs=epochs, fit_plans=fit_plans,
+                             val_plans=val_plans, pplans=pplans)
+    return want, {"fit_tiles": fit_tiles, "ptiles": ptiles,
+                  "fit_plans": fit_plans, "pplans": pplans}
+
+
+def check_table(seg, g, truth, where) -> dict:
+    """A segmentation table against its graph and the true cells: one row
+    per transcript, a cell for exactly the transcripts with a candidate
+    edge, accuracy above ``MIN_ACCURACY``.  Returns the accuracies (also
+    on the transcripts with two or more candidate cells) and the counts
+    of transcripts with one and with two or more candidates."""
+    import numpy as np
+    import pandas as pd
+
+    rows = seg["row_index"].to_numpy()
+    ids = seg["segger_cell_id"].to_numpy(object)
+    n_cand = np.bincount(g.cand_src, minlength=g.n_tx)
+    with_cand = np.sort(g.tx_index[n_cand > 0])
+    multi = g.tx_index[n_cand >= 2]
+    acc = _accuracy(rows, ids, truth)
+    if not (seg["row_index"].is_unique
+            and np.array_equal(np.sort(rows), np.sort(g.tx_index))):
+        raise AssertionError(f"{where}: not one row per transcript")
+    if not np.array_equal(np.sort(rows[pd.notna(ids)]), with_cand):
+        raise AssertionError(f"{where}: the transcripts with a cell are "
+                             "not those with a candidate edge")
+    if not acc > MIN_ACCURACY:
+        raise AssertionError(f"{where} accuracy {acc} <= {MIN_ACCURACY}")
+    return {"accuracy": acc,
+            "accuracy_multi": _accuracy(rows, ids, truth, multi),
+            "multi": multi, "n_with_cand": with_cand.size}
+
+
 def drive_pipeline(out_dir, device=None, n_cells=PIPE_CELLS,
                    n_genes=PIPE_GENES, epochs=PIPE_EPOCHS,
                    tx_per_cell=PIPE_TX_PER_CELL, pipeline_kw=None,
@@ -855,26 +934,19 @@ def drive_pipeline(out_dir, device=None, n_cells=PIPE_CELLS,
     transcripts with a candidate edge, and ``predict_streaming`` +
     ``write_dense`` equal to the run's ``predict`` + ``write``.  Returns
     the walls, the counts with the launches the run must have made on
-    CUDA, and the accuracies on transcripts with two or more candidate
-    cells after training and with the initial weights."""
+    CUDA, the accuracies on transcripts with two or more candidate
+    cells after training and with the initial weights, and the graph."""
     import numpy as np
     import pandas as pd
     import torch
 
-    from segger_tpu_torch.data.partition import (
-        make_fit_tiles, make_predict_tiles,
-    )
-    from segger_tpu_torch.data.synthetic import make_synthetic
     from segger_tpu_torch.data.writer import SegmentationWriter
     from segger_tpu_torch.pipeline import ISTPipeline, PipelineConfig
     from segger_tpu_torch.train.trainer import TrainConfig
 
     cuda = device is None or torch.device(device).type == "cuda"
     t0 = time.perf_counter()
-    synth = make_synthetic(n_cells=n_cells, n_genes=n_genes,
-                           mean_tx_per_cell=tx_per_cell,
-                           extent=400.0 * float(np.sqrt(n_cells / 200)),
-                           seed=SEED)
+    synth = pipeline_slide(n_cells, n_genes, tx_per_cell)
     walls = {"make-data": time.perf_counter() - t0}
     pipe = ISTPipeline(synth.transcripts, synth.boundaries, synth.polygons,
                        PipelineConfig(seed=SEED, **(pipeline_kw or {})))
@@ -891,40 +963,15 @@ def drive_pipeline(out_dir, device=None, n_cells=PIPE_CELLS,
     peak = (torch.cuda.max_memory_allocated() - base) / 2**20 if cuda \
         else None
     walls.update(pipe.walls)
-    g, tree, tr = pipe.graph, pipe.tree, pipe.trainer
+    g, tr = pipe.graph, pipe.trainer
     caps = dict(tr.captures)
-
-    # the launches the run made, counted as phases 3 and 4 count them
-    fit_tiles = make_fit_tiles(g, tree,
-                               margin=pipe.cfg.tiling_margin_training)
-    ptiles = make_predict_tiles(g, tree,
-                                margin=pipe.cfg.tiling_margin_prediction)
-    train_tiles, val_tiles = tr.split_tiles(fit_tiles)
-    val_plans = tr._batch_plans(val_tiles)
-    fit_plans = tr._batch_plans(train_tiles, shuffle=True,
-                                rng=tr.epoch_streams(0)[0])
-    pplans = tr._batch_plans(ptiles, use_xlo=True)
-    want = expected_launches(tr, caps, steps=len(tr.step_log),
-                             epochs=epochs, fit_plans=fit_plans,
-                             val_plans=val_plans, pplans=pplans)
+    want, run = run_launches(pipe, tr, epochs)
+    ptiles = run["ptiles"]
 
     # the table
     truth = np.asarray(synth.truth_cell)   # by row_index
-    rows = seg["row_index"].to_numpy()
-    ids = seg["segger_cell_id"].to_numpy(object)
-    n_cand = np.bincount(g.cand_src, minlength=g.n_tx)
-    with_cand = np.sort(g.tx_index[n_cand > 0])
-    multi = g.tx_index[n_cand >= 2]
-    acc = _accuracy(rows, ids, truth)
-    acc_multi = _accuracy(rows, ids, truth, multi)
-    if not (seg["row_index"].is_unique
-            and np.array_equal(np.sort(rows), np.sort(g.tx_index))):
-        raise AssertionError("pipeline: not one row per transcript")
-    if not np.array_equal(np.sort(rows[pd.notna(ids)]), with_cand):
-        raise AssertionError("pipeline: the transcripts with a cell are "
-                             "not those with a candidate edge")
-    if not acc > MIN_ACCURACY:
-        raise AssertionError(f"pipeline accuracy {acc} <= {MIN_ACCURACY}")
+    table = check_table(seg, g, truth, "pipeline")
+    multi = table["multi"]
 
     # predict_streaming + write_dense on the same trainer
     t0 = time.perf_counter()
@@ -963,15 +1010,115 @@ def drive_pipeline(out_dir, device=None, n_cells=PIPE_CELLS,
     return {"walls": walls, "stream_s": stream_s, "counts": counts,
             "want": want, "captures": caps, "peak_mib": peak,
             "n_tx": g.n_tx, "n_bd": g.n_bd, "n_tt": int(g.tt_src.size),
-            "n_cand": int(g.cand_src.size), "n_with_cand": with_cand.size,
-            "n_multi": int(multi.size), "n_tiles": (len(fit_tiles),
-                                                    len(ptiles)),
+            "n_cand": int(g.cand_src.size),
+            "n_with_cand": table["n_with_cand"],
+            "n_multi": int(multi.size),
+            "n_tiles": (len(run["fit_tiles"]), len(ptiles)),
             "epochs": epochs, "steps": len(tr.step_log),
-            "history": tr.history, "accuracy": acc,
-            "accuracy_multi": acc_multi, "accuracy_multi_init": acc0_multi,
+            "history": tr.history, "accuracy": table["accuracy"],
+            "accuracy_multi": table["accuracy_multi"],
+            "accuracy_multi_init": acc0_multi, "graph": g,
             # the first predict and training tiles, for the kernel checks
-            "cfg": tr.cfg, "tiles": (first_tile(tr, pplans[0]),
-                                     first_tile(tr, fit_plans[0]))}
+            "cfg": tr.cfg, "tiles": (first_tile(tr, run["pplans"][0]),
+                                     first_tile(tr, run["fit_plans"][0]))}
+
+
+def cli_flags(kw) -> list:
+    """``{"tiling_nodes_per_tile": 600}`` -> the command's flags."""
+    return [a for k, v in (kw or {}).items()
+            for a in ("--" + k.replace("_", "-"), str(v))]
+
+
+def same_graph(a, b, where) -> None:
+    """Every integer array of two HostGraphs equal, every float array
+    within 1e-6."""
+    import numpy as np
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if not isinstance(x, np.ndarray):
+            if x != y:
+                raise AssertionError(f"{where}: {f.name} {x} != {y}")
+            continue
+        same = x.shape == y.shape and x.dtype == y.dtype and (
+            np.allclose(x, y, rtol=0, atol=1e-6) if x.dtype.kind == "f"
+            else np.array_equal(x, y))
+        if not same:
+            raise AssertionError(f"{where}: graph array {f.name} differs")
+
+
+def drive_cli(work_dir, device=None, n_cells=PIPE_CELLS, n_genes=PIPE_GENES,
+              epochs=PIPE_EPOCHS, tx_per_cell=PIPE_TX_PER_CELL,
+              pipeline_kw=None, train_kw=None, graph=None) -> dict:
+    """Phase 8: the command line users run.  Writes phase 7's slide as a
+    raw Xenium v2 directory (``write_xenium_like``), runs ``segger-tpu-
+    torch segment`` on it in this process (``--no-anndata``, the kernel
+    counts set to 0 just before and read just after), then ``export
+    transcripts boundaries`` on its output.  Checks that the graph the
+    command built from the vendor files equals ``graph`` (phase 7's, from
+    the in-memory tables; integer arrays exactly, floats within 1e-6), the
+    table as phase 7 does, and that the exported boundaries have a ring of
+    three or more vertices for more than 90 % of the cells export kept.
+    Returns the walls by stage, the counts with the launches the run must
+    have made on CUDA, and the boundary pools the export started."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from segger_tpu_torch.cli.main import main as cli
+    from segger_tpu_torch.cli.segment import run_segment
+    from segger_tpu_torch.data.synthetic import write_xenium_like
+    from segger_tpu_torch.export.boundary import generate_boundaries
+
+    work = Path(work_dir)
+    synth = pipeline_slide(n_cells, n_genes, tx_per_cell)
+    t0 = time.perf_counter()
+    raw = write_xenium_like(work / "xenium", synth)
+    walls = {"write-vendor": time.perf_counter() - t0}
+    out = work / "out"
+    reset_counts()
+    code = cli(["segment", "-i", str(raw), "-o", str(out), "--no-anndata",
+                "--max-epochs", str(epochs), "--seed", str(SEED),
+                *(["--device", device] if device else []),
+                *cli_flags(pipeline_kw), *cli_flags(train_kw)])
+    if device is None or torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    counts = read_counts()
+    if code != 0:
+        raise AssertionError(f"segment exited {code}")
+    last = run_segment.last_run
+    run_segment.last_run = None     # the trainer's device memory goes
+    pipe, tr = last["pipeline"], last["trainer"]
+    walls.update(last["walls"])
+    g = pipe.graph
+    if graph is not None:
+        same_graph(g, graph, "cli")
+    want, run = run_launches(pipe, tr, epochs)
+    seg = pd.read_parquet(out / "segger_segmentation.parquet")
+    table = check_table(seg, g, np.asarray(synth.truth_cell), "cli")
+
+    pools = dict(generate_boundaries.pools)
+    t0 = time.perf_counter()
+    code = cli(["export", "-i", str(raw), "-s", str(out), "-o",
+                str(out / "export"), "transcripts", "boundaries"])
+    walls["export-boundaries"] = time.perf_counter() - t0
+    if code != 0:
+        raise AssertionError(f"export exited {code}")
+    pools = {k: v - pools[k] for k, v in generate_boundaries.pools.items()}
+    kept = pd.read_parquet(out / "export" / "segger_transcripts.parquet")
+    n_kept = kept["segger_cell_id"].nunique()
+    rings = pd.read_parquet(out / "export" / "segger_boundaries.parquet")
+    n_rings = int((rings.groupby("cell_id").size() >= 3).sum())
+    if not n_rings > 0.9 * n_kept:
+        raise AssertionError(f"export: {n_rings} rings of 3 or more "
+                             f"vertices for {n_kept} kept cells")
+    return {"walls": walls, "counts": counts, "want": want,
+            "captures": dict(tr.captures), "pools": pools,
+            "n_tx": g.n_tx, "n_bd": g.n_bd, "epochs": epochs,
+            "steps": len(tr.step_log), "n_tiles": (len(run["fit_tiles"]),
+                                                   len(run["ptiles"])),
+            "accuracy": table["accuracy"], "n_kept": int(n_kept),
+            "n_rings": n_rings, "history": tr.history}
 
 
 def main(argv) -> int:
@@ -1443,6 +1590,36 @@ def main(argv) -> int:
         print(f"{kernel} [{where}] " + json.dumps(r))
     del ptile, ftile, pipe["tiles"]
 
+    # -- phase 8: the command line users run, on phase 7's slide written
+    # as a raw Xenium directory: segment, then export
+    with tempfile.TemporaryDirectory() as work_dir:
+        cli = drive_cli(work_dir, graph=pipe.pop("graph"))
+    cli_counts = cli["counts"]
+    print(f"cli: write_xenium_like -> segger-tpu-torch segment "
+          f"--no-anndata --max-epochs {cli['epochs']} --seed {SEED} -> "
+          f"{cli['n_tx']} tx, {cli['n_bd']} cells, {cli['n_tiles'][0]} fit "
+          f"and {cli['n_tiles'][1]} predict tiles, {cli['steps']} steps; "
+          f"the graph from the vendor files equals phase 7's; export "
+          f"transcripts boundaries: {cli['n_rings']} rings of 3 or more "
+          f"vertices for {cli['n_kept']} kept cells, boundary pools "
+          f"{cli['pools']}, {len(os.sched_getaffinity(0))} cores")
+    print("cli walls (s): " + json.dumps(
+        {k: round(v, 3) for k, v in cli["walls"].items()}))
+    for rec in cli["history"]:
+        print("cli fit epoch " + json.dumps(rec))
+    print(f"cli accuracy: {cli['accuracy']:.4f} of the transcripts of a "
+          f"cell (need > {MIN_ACCURACY})")
+    print(f"cli launches {cli_counts}")
+    if not (cli["captures"]["predict"] == 1 and cli["captures"]["eval"]
+            == 1 and 1 <= cli["captures"]["train"] <= PIPE_EPOCHS):
+        raise AssertionError(f"cli captures {cli['captures']}")
+    if cli_counts != cli["want"]:
+        raise AssertionError(f"cli launches {cli_counts}, expected "
+                             f"{cli['want']}")
+    if cli["pools"] != {"fork": 0, "spawn": 1}:
+        raise AssertionError(f"export boundary pools {cli['pools']}: the "
+                             "spawn pool did not run")
+
     def summary(kernel, tile_prefix, modes=None):
         rs = [r for k, w, r in checks if k == kernel]
         tile_rs = [r for k, w, r in checks if k == kernel
@@ -1480,29 +1657,35 @@ def main(argv) -> int:
          "source": src + "edge_stage_fwd.cu", "replaces": f"{pg}:175",
          "launches": predict_counts["fwd"]["nokeep"]
          + fit_counts["fwd"]["nokeep"] + fwd_counts["fwd"]["nokeep"]
-         + pipe_counts["fwd"]["nokeep"],
+         + pipe_counts["fwd"]["nokeep"] + cli_counts["fwd"]["nokeep"],
          "launches_by_path": {"predict": predict_counts["fwd"]["nokeep"],
                               "fit": fit_counts["fwd"]["nokeep"],
                               "forward-only": fwd_counts["fwd"]["nokeep"],
-                              "pipeline": pipe_counts["fwd"]["nokeep"]},
+                              "pipeline": pipe_counts["fwd"]["nokeep"],
+                              "cli": cli_counts["fwd"]["nokeep"]},
          **summary("K1", "tile"), "library_ms": None,
          "pipeline_tile": on_pipeline("K1", "pipeline tile")},
         {"name": "edge_stage_fwd_prng", "route": "cuda",
          "source": src + "edge_stage_fwd.cu", "replaces": f"{pg}:226",
-         "launches": fit_counts["fwd"]["prng"] + pipe_counts["fwd"]["prng"],
+         "launches": fit_counts["fwd"]["prng"] + pipe_counts["fwd"]["prng"]
+         + cli_counts["fwd"]["prng"],
          "launches_by_path": {"fit": fit_counts["fwd"]["prng"],
-                              "pipeline": pipe_counts["fwd"]["prng"]},
+                              "pipeline": pipe_counts["fwd"]["prng"],
+                              "cli": cli_counts["fwd"]["prng"]},
          **summary("K2", "train tile"), "library_ms": None,
          "pipeline_tile": on_pipeline("K2", "pipeline train tile")},
         {"name": "edge_stage_bwd", "route": "cuda",
          "source": src + "edge_stage_bwd.cu",
          "replaces": f"{pg}:309", "also_replaces": f"{pg}:334",
          "launches": fit_counts["bwd"]["prng"] + fit_counts["bwd"]["nokeep"]
-         + pipe_counts["bwd"]["prng"] + pipe_counts["bwd"]["nokeep"],
+         + pipe_counts["bwd"]["prng"] + pipe_counts["bwd"]["nokeep"]
+         + cli_counts["bwd"]["prng"] + cli_counts["bwd"]["nokeep"],
          "launches_by_path": {"fit": fit_counts["bwd"]["prng"]
                               + fit_counts["bwd"]["nokeep"],
                               "pipeline": pipe_counts["bwd"]["prng"]
-                              + pipe_counts["bwd"]["nokeep"]},
+                              + pipe_counts["bwd"]["nokeep"],
+                              "cli": cli_counts["bwd"]["prng"]
+                              + cli_counts["bwd"]["nokeep"]},
          **summary("K3", "train tile", ("prng",)), "library_ms": None,
          "pipeline_tile": on_pipeline("K3", "pipeline train tile",
                                       ("prng",))},
@@ -1516,9 +1699,11 @@ def main(argv) -> int:
         {"name": "score_max", "route": "cuda",
          "source": src + "score.cu",
          "replaces": "segger_tpu/ops/pallas/score.py:60",
-         "launches": predict_counts["score"] + pipe_counts["score"],
+         "launches": predict_counts["score"] + pipe_counts["score"]
+         + cli_counts["score"],
          "launches_by_path": {"predict": predict_counts["score"],
-                              "pipeline": pipe_counts["score"]},
+                              "pipeline": pipe_counts["score"],
+                              "cli": cli_counts["score"]},
          **summary("K5", "tile"),
          "library_ms": sc_tile["library_ms"],
          "library_device_ms": sc_tile["library_device_ms"],

@@ -1,0 +1,295 @@
+"""`segger-tpu-torch segment`: the main train + predict entry point.
+
+Options are scraped from the PipelineConfig / TrainConfig dataclass
+sources by the AST registry — defaults and help text live on the
+classes, never duplicated here (reference: cli/segment.py:14-22,63-313).
+The port's copy of ``segger_tpu.cli.segment``, with the same options
+and ``--device``: training and prediction run on CUDA unless
+``--device cpu`` is given, and the command raises without a card.  The
+options whose modules are not ported yet (sharding over several
+devices, the distributed and grid paths, columnar transcripts and the
+graph cache) stay in the parser and raise ``NotImplementedError``
+before any file is read.
+"""
+from __future__ import annotations
+
+import json
+import logging
+import time
+from pathlib import Path
+
+logger = logging.getLogger(__name__)
+
+_PKG = Path(__file__).resolve().parents[1]
+
+_PIPELINE_NAMES = [
+    "cells_representation_mode",
+    "cells_embedding_size",
+    "cells_min_counts",
+    "cells_clusters_n_neighbors",
+    "cells_clusters_resolution",
+    "genes_min_counts",
+    "genes_clusters_n_neighbors",
+    "genes_clusters_resolution",
+    "transcripts_graph_max_k",
+    "transcripts_graph_max_dist",
+    "segmentation_graph_mode",
+    "prediction_graph_mode",
+    "prediction_graph_max_k",
+    "prediction_graph_buffer_ratio",
+    "tiling_mode",
+    "tiling_nodes_per_tile",
+    "tiling_side_length",
+    "tiling_margin_training",
+    "tiling_margin_prediction",
+    "gene_corr_reference_path",
+    "gene_missing_strategy",
+    "seed",
+]
+_TRAIN_NAMES = [
+    "in_channels",
+    "hidden_channels",
+    "out_channels",
+    "n_mid_layers",
+    "n_heads",
+    "learning_rate",
+    "sg_loss_type",
+    "tx_margin",
+    "sg_margin",
+    "tx_weight_start",
+    "tx_weight_end",
+    "bd_weight_start",
+    "bd_weight_end",
+    "sg_weight_start",
+    "sg_weight_end",
+    "update_gene_embedding",
+    "use_positional_embeddings",
+    "normalize_embeddings",
+    "compute_dtype",
+    "max_epochs",
+    "edges_per_batch",
+    "training_fraction",
+    "tiles_per_step",
+    "shape_merge",
+    "seed",
+    "checkpoint_every",
+    "checkpoint_dir",
+    "scan_steps",
+    "tile_cache_gb",
+]
+
+
+def _registry():
+    from .registry import ParameterRegistry
+
+    reg = ParameterRegistry()
+    reg.register_from_file(_PKG / "pipeline.py", "PipelineConfig")
+    reg.register_from_file(_PKG / "train" / "trainer.py", "TrainConfig")
+    return reg
+
+
+def add_segment_parser(sub):
+    p = sub.add_parser(
+        "segment", help="Train the model and segment transcripts"
+    )
+    p.add_argument("-i", "--input-directory", required=True,
+                   help="Standardized (or raw platform) dataset directory")
+    p.add_argument("-o", "--output-directory", required=True)
+    p.add_argument("--platform", default=None)
+    p.add_argument("--nucleus-strategy", default="vendor",
+                   choices=["vendor", "intersect"],
+                   help="Xenium nucleus geometry: vendor rings as "
+                        "shipped (the reference's live behavior) or "
+                        "clipped to their cell ring (the reference's "
+                        "disabled cell-intersection intent)")
+    p.add_argument("--no-anndata", action="store_true",
+                   help="Skip segger_anndata.h5ad output")
+    p.add_argument("--debug", action="store_true",
+                   help="Dump params.json and debug artifacts")
+    p.add_argument("--devices", type=int, default=0,
+                   help="Shard tile batches over this many devices "
+                        "(0 = all available)")
+    p.add_argument("--distributed-predict", action="store_true",
+                   help="Predict via halo-exchange whole-slide sharding "
+                        "over the mesh instead of halo tiles (exact; "
+                        "no margins or dedupe)")
+    p.add_argument("--distributed-train", action="store_true",
+                   help="Train margin-free on the whole strip-sharded "
+                        "slide (per-layer halo exchange, exact "
+                        "receptive fields) instead of margin tiles")
+    p.add_argument("--grid", default=None, metavar="DXxDY",
+                   help="Use a 2-D grid decomposition (e.g. 4x2) for "
+                        "the distributed train/predict paths instead "
+                        "of 1-D strips — for slides large in both axes")
+    p.add_argument("--low-memory", action="store_true",
+                   help="Stream transcripts into a disk-spooled "
+                        "columnar table instead of a whole-slide "
+                        "DataFrame, predict via the streaming "
+                        "max-merge path, and write with categorical "
+                        "cell ids (bounded host RSS for 50M+ "
+                        "transcript slides; skips the h5ad export)")
+    p.add_argument("--graph-cache", default=None, metavar="DIR",
+                   help="Cache the whole-slide graph as a memmappable "
+                        "plane in DIR: when present it is loaded "
+                        "(memmapped, skipping the host build — edge "
+                        "arrays page from disk); otherwise it is "
+                        "written after the build.  Enables phased "
+                        "prepare-on-CPU / run-on-accelerator workflows")
+    p.add_argument("--prepare-only", action="store_true",
+                   help="Build features + graph (+ --graph-cache) and "
+                        "exit before touching any accelerator")
+    add_device_argument(p)
+    _registry().add_arguments(p)
+    p.set_defaults(func=run_segment)
+    return p
+
+
+# option -> the ROADMAP.md item that ports what it needs
+_UNPORTED = {
+    "distributed_predict": "Queue 1 item 7 (parallel/)",
+    "distributed_train": "Queue 1 item 7 (parallel/)",
+    "grid": "Queue 1 item 7 (parallel/)",
+    "low_memory": "Queue 1 item 3 (data/columnar.py)",
+    "graph_cache": "Queue 1 item 3 (save_/load_host_graph_plane)",
+}
+
+
+def add_device_argument(p):
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="Train and predict on the GPU (cuda), or run the "
+                        "kernels' plain PyTorch versions on the CPU")
+
+
+def _refuse_unported(args) -> None:
+    """Raise for an option whose modules are not ported yet, naming the
+    ROADMAP.md item that ports them; nothing gives way to another
+    path."""
+    for name, item in _UNPORTED.items():
+        if getattr(args, name):
+            raise NotImplementedError(
+                f"--{name.replace('_', '-')} is not ported to "
+                f"segger_tpu_torch yet: ROADMAP.md {item}"
+            )
+
+
+def run_segment(args) -> int:
+    """Read the input, build features, graph and tiles, fit, predict and
+    write.  ``run_segment.last_run`` keeps the walls of the last call by
+    stage (read, features + graph, fit, predict, write), its pipeline and
+    its trainer."""
+    _refuse_unported(args)
+    if not args.prepare_only:
+        import torch
+
+        from ..train.trainer import resolve_device
+
+        device = resolve_device(args.device)
+        # --devices 0 means every device, as in the JAX package
+        n_dev = args.devices or (
+            torch.cuda.device_count() if device.type == "cuda" else 1)
+        if n_dev > 1:
+            raise NotImplementedError(
+                f"--devices {args.devices} ({n_dev} devices): sharding "
+                "over several devices is not ported to segger_tpu_torch "
+                "yet: ROADMAP.md Queue 1 item 7 (parallel/); pass "
+                "--devices 1"
+            )
+
+    from ..io import get_preprocessor
+    from ..pipeline import ISTPipeline, PipelineConfig
+    from ..train.trainer import SeggerTrainer, TrainConfig
+    from ..data.partition import make_fit_tiles, make_predict_tiles
+    from ..data.writer import SegmentationWriter
+
+    reg = _registry()
+    pipe_kwargs = reg.collect(args, _PIPELINE_NAMES)
+    train_kwargs = reg.collect(args, _TRAIN_NAMES)
+    out_dir = Path(args.output_directory)
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    if args.debug:
+        with open(out_dir / "params.json", "w") as f:
+            json.dump({**pipe_kwargs, **train_kwargs}, f, indent=2,
+                      default=str)
+
+    walls = {}
+    t0 = time.perf_counter()
+    cfg = PipelineConfig(**pipe_kwargs)
+    pp_kwargs = (
+        {"nucleus_strategy": args.nucleus_strategy}
+        if args.nucleus_strategy != "vendor" else {}
+    )
+    pp = get_preprocessor(
+        args.input_directory, platform=args.platform, **pp_kwargs
+    )
+    bd, polys = pp.boundaries
+    tx = pp.transcripts
+    walls["read"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipeline = ISTPipeline(tx, bd, polys, cfg)
+    pipeline.load()
+    graph, tree = pipeline.graph, pipeline.tree
+    gene_names = pipeline.adata.var.index.to_numpy().astype(str)
+    walls["features + graph"] = time.perf_counter() - t0
+    run_segment.last_run = {"walls": walls, "pipeline": pipeline,
+                            "trainer": None}
+    if args.prepare_only:
+        print("Graph prepared")
+        return 0
+
+    trainer = SeggerTrainer(
+        graph, TrainConfig(**train_kwargs), device=args.device
+    )
+    run_segment.last_run["trainer"] = trainer
+    t0 = time.perf_counter()
+    fit_tiles = make_fit_tiles(
+        graph, tree, margin=cfg.tiling_margin_training,
+    )
+    trainer.fit(fit_tiles)
+    walls["fit"] = time.perf_counter() - t0
+
+    if args.debug:
+        # debug artifacts for stage-isolated re-runs
+        # (reference: writer.py:280-292)
+        from ..train.checkpoint import save_checkpoint
+
+        debug_dir = out_dir / "debug"
+        debug_dir.mkdir(exist_ok=True)
+        save_checkpoint(
+            debug_dir / "checkpoint.npz",
+            trainer.model,
+            trainer.optimizer,
+            config={**pipe_kwargs, **train_kwargs},
+        )
+        pipeline.adata.write_h5ad(debug_dir / "adata_debug.h5ad")
+
+    writer = SegmentationWriter(
+        out_dir, save_anndata=not args.no_anndata, debug=args.debug
+    )
+    t0 = time.perf_counter()
+    predict_tiles = make_predict_tiles(
+        graph, tree, margin=cfg.tiling_margin_prediction,
+    )
+    predictions = trainer.predict(predict_tiles)
+    walls["predict"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    writer.write(
+        predictions,
+        cell_ids=graph.bd_cell_id,
+        gene_names=gene_names,
+        transcripts=pipeline.transcripts,
+    )
+    walls["write"] = time.perf_counter() - t0
+    # training history as CSV (CSVLogger analogue, cli/segment.py:394)
+    if trainer.history:
+        import pandas as pd
+
+        pd.DataFrame(trainer.history).to_csv(
+            out_dir / "metrics.csv", index=False
+        )
+    logger.info("segment walls (s): %s", walls)
+    print(f"Segmentation written to {out_dir}")
+    return 0
+
+
+run_segment.last_run = None

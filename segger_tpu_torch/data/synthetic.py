@@ -6,11 +6,15 @@ boundaries, transcripts scattered around cell centers, plus background
 noise transcripts, in the standard schema
 (reference schema: src/segger/io/fields.py:104-124).  The same stream as
 ``segger_tpu.data.synthetic.make_synthetic``: one seed gives one slide in
-both packages.  The vendor-directory writers wait for the I/O readers.
+both packages.  ``write_xenium_like``, ``write_merscope_like`` and
+``write_synthetic_dataset`` write a slide as a raw Xenium v2 or MERSCOPE
+directory or as a standardized one, byte for byte as the JAX package's
+writers do; the columnar writers wait for the columnar transcript table.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 import numpy as np
 import pandas as pd
 
@@ -148,3 +152,127 @@ def make_synthetic(
     return SyntheticData(
         transcripts=tx, boundaries=bd, polygons=polys, truth_cell=truth
     )
+
+
+def write_xenium_like(directory, data: "SyntheticData") -> Path:
+    """Write SyntheticData as a raw 10x Xenium v2-style directory
+    (experiment.xenium + raw-schema parquet files) for IO tests/demos."""
+    import json
+
+    from ..io.fields import XeniumTranscriptFields, XeniumBoundaryFields
+
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    raw_t, raw_b = XeniumTranscriptFields(), XeniumBoundaryFields()
+    tx_f, bd_f = StandardTranscriptFields(), StandardBoundaryFields()
+
+    with open(directory / "experiment.xenium", "w") as f:
+        json.dump({"analysis_sw_version": "xenium-3.0.0"}, f)
+
+    tx = data.transcripts
+    pd.DataFrame(
+        {
+            raw_t.x: tx[tx_f.x],
+            raw_t.y: tx[tx_f.y],
+            raw_t.feature: tx[tx_f.feature],
+            raw_t.cell_id: tx[tx_f.cell_id].fillna(raw_t.null_cell_id),
+            raw_t.compartment: (
+                tx[tx_f.compartment] == tx_f.nucleus_value
+            ).astype(int),
+            raw_t.quality: 40.0,
+        }
+    ).to_parquet(directory / raw_t.filename, index=False)
+
+    for fname, btype in (
+        (raw_b.cell_filename, bd_f.cell_value),
+        (raw_b.nucleus_filename, bd_f.nucleus_value),
+    ):
+        rows = []
+        for (cid, bt), poly in data.polygons.items():
+            if bt != btype:
+                continue
+            for v in poly:
+                rows.append((cid, v[0], v[1]))
+        pd.DataFrame(
+            rows, columns=[raw_b.id, raw_b.x, raw_b.y]
+        ).to_parquet(directory / fname, index=False)
+    return directory
+
+
+def _polygon_to_wkb(poly: np.ndarray) -> bytes:
+    """Encode an exterior ring as little-endian WKB Polygon."""
+    import struct
+
+    poly = np.asarray(poly, dtype=np.float64)
+    ring = np.vstack([poly, poly[:1]])  # close the ring
+    out = b"\x01" + struct.pack("<I", 3) + struct.pack("<I", 1)
+    out += struct.pack("<I", len(ring))
+    out += ring.astype("<f8").tobytes()
+    return out
+
+
+def write_merscope_like(directory, data: "SyntheticData") -> Path:
+    """Write SyntheticData as a raw Vizgen MERSCOPE-style directory
+    (detected_transcripts.csv + WKB boundary parquet)."""
+    from ..io.fields import (
+        MerscopeTranscriptFields,
+        MerscopeBoundaryFields,
+    )
+
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    raw_t, raw_b = MerscopeTranscriptFields(), MerscopeBoundaryFields()
+    tx_f, bd_f = StandardTranscriptFields(), StandardBoundaryFields()
+
+    tx = data.transcripts
+    pd.DataFrame(
+        {
+            raw_t.x: tx[tx_f.x],
+            raw_t.y: tx[tx_f.y],
+            raw_t.feature: tx[tx_f.feature],
+            raw_t.cell_id: tx[tx_f.cell_id].fillna("-1"),
+        }
+    ).to_csv(directory / raw_t.filename, index=False)
+
+    for fname, btype in (
+        (raw_b.cell_filename, bd_f.cell_value),
+        (raw_b.nucleus_filename, bd_f.nucleus_value),
+    ):
+        ids, blobs = [], []
+        for (cid, bt), poly in data.polygons.items():
+            if bt != btype:
+                continue
+            ids.append(cid)
+            blobs.append(_polygon_to_wkb(poly))
+        pd.DataFrame({raw_b.id: ids, "Geometry": blobs}).to_parquet(
+            directory / fname, index=False
+        )
+    return directory
+
+
+def write_synthetic_dataset(
+    directory, seed: int = 0, **kwargs
+) -> "SyntheticData":
+    """Write a standardized dataset directory (transcripts.parquet +
+    boundaries.parquet with flattened polygon vertices) for IO/CLI tests."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    data = make_synthetic(seed=seed, **kwargs)
+    tx_f = StandardTranscriptFields()
+    bd_f = StandardBoundaryFields()
+
+    data.transcripts.assign(truth_cell=data.truth_cell).to_parquet(
+        directory / tx_f.filename
+    )
+    # boundaries: one row per vertex (ragged polygons flattened)
+    rows = []
+    for (cid, btype), poly in data.polygons.items():
+        contains = True
+        for v in poly:
+            rows.append((cid, btype, contains, v[0], v[1]))
+    pd.DataFrame(
+        rows,
+        columns=[bd_f.id, bd_f.boundary_type, bd_f.contains_nucleus,
+                 "vertex_x", "vertex_y"],
+    ).to_parquet(directory / bd_f.filename)
+    return data

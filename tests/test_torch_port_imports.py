@@ -1,8 +1,9 @@
 """The port stands alone: ``segger_tpu_torch`` and ``chip_smoke.py``
 import neither JAX nor the JAX package, nothing of scikit-learn or h5py
 at module level (the GPU machine has neither), and a small fit and
-prediction, and the segmentation pipeline from a synthetic slide to its
-table, run with all of them blocked."""
+prediction, the segmentation pipeline from a synthetic slide to its
+table, and the command line from a raw Xenium directory to the exported
+boundaries, run with all of them blocked."""
 import ast
 import subprocess
 import sys
@@ -90,6 +91,24 @@ _SCRIPT = textwrap.dedent("""
     assert r["accuracy"] > 0.6 and r["n_tiles"][1] > 1
     assert set(r["walls"]) == {{"make-data", "features", "graph", "tiling",
                                "fit", "predict", "write"}}
+
+    # the command line (chip_smoke.py's phase 8, small, on the CPU): the
+    # same slide as a raw Xenium directory -> segment --device cpu
+    # --no-anndata -> export transcripts boundaries; the graph from the
+    # vendor files equals the pipeline's from the in-memory tables
+    with tempfile.TemporaryDirectory() as work:
+        c = chip_smoke.drive_cli(
+            work, device="cpu", n_cells=60, n_genes=20, epochs=1,
+            pipeline_kw=dict(cells_embedding_size=8, genes_min_counts=5,
+                             cells_min_counts=3, tiling_nodes_per_tile=600,
+                             prediction_graph_buffer_ratio=0.2),
+            train_kw=dict(hidden_channels=16, out_channels=16,
+                          n_mid_layers=0), graph=r["graph"])
+    assert c["accuracy"] > 0.6 and c["n_rings"] > 0
+    assert set(c["walls"]) == {{"write-vendor", "read", "features + graph",
+                               "fit", "predict", "write",
+                               "export-boundaries"}}
+    assert "cv2" not in sys.modules     # a Xenium run never imports it
     assert not any(m.split(".")[0] in {blocked!r}
                    for m in sys.modules if sys.modules[m] is not None)
     print("OK")
