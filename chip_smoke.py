@@ -10,8 +10,9 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. build every CUDA kernel of the predict and training paths from
-   ``segger_tpu_torch/csrc`` (one nvcc per source, started together) and
-   print the build time and each kernel's registers and spills;
+   ``segger_tpu_torch/csrc`` (one nvcc per source, started together,
+   and meanwhile the host's native spatial core, one g++) and print the
+   build time and each kernel's registers and spills;
 2. hold each kernel against its plain PyTorch version on the card, at
    N = 50,000 rows and on the main paths' own tile tables, and time both
    (CUDA events around the wrapper calls, and for every kernel and K5's
@@ -80,7 +81,27 @@ Phases (any failure exits non-zero; nothing is caught):
    equal the run's captures and replays, the boundaries go through the
    export's process pool started by spawn (CUDA is initialized), and
    more than 90 % of the cells export kept have a ring of three or more
-   vertices.
+   vertices;
+9. the out-of-core whole-slide path (``drive_outofcore``): phase 7's
+   slide as ``ColumnarTranscripts.from_chunks`` of 7 DataFrame chunks,
+   spooled to disk, through ``ISTPipeline(...).load()`` (the graph must
+   equal phase 7's: integer fields exactly, float fields within rtol
+   1e-6, atol 1e-7), saved as a graph plane, loaded memmapped, fit for 2
+   epochs, ``predict_streaming`` and ``write_dense`` (the table passes
+   phase 7's checks and agrees with phase 7's on at least 0.99 of the
+   transcripts; K1, K2, K3 and K5 launched as counted, then held against
+   their plain versions on this path's first tiles); the slide as a raw
+   MERSCOPE directory through ``segment --low-memory --graph-cache C
+   --prepare-only`` in a child process that must initialize no CUDA, then
+   ``segment --low-memory --graph-cache C`` here on the card, which must
+   load the plane (no read, no build) and launch as counted; and the
+   native spatial core on this card's host: phase 7's graph stage by the
+   native and the KDTree branches (equal edge sets, both substage walls)
+   and the common-neighbor counts of its cells' kNN graph by the native
+   merge and the SpGEMM (equal, both walls).  Each stage's wall,
+   ``peak_rss_gb``, the sampled RSS and anonymous-RSS peaks and
+   ``torch.cuda.max_memory_allocated`` are printed beside the card's
+   name and power limit.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel JSON record, and the line before that the card's
@@ -95,6 +116,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 SEED = 0
@@ -1009,6 +1031,7 @@ def drive_pipeline(out_dir, device=None, n_cells=PIPE_CELLS,
                            multi)
     return {"walls": walls, "stream_s": stream_s, "counts": counts,
             "want": want, "captures": caps, "peak_mib": peak,
+            "table": seg[["row_index", "segger_cell_id"]],
             "n_tx": g.n_tx, "n_bd": g.n_bd, "n_tt": int(g.tt_src.size),
             "n_cand": int(g.cand_src.size),
             "n_with_cand": table["n_with_cand"],
@@ -1121,6 +1144,424 @@ def drive_cli(work_dir, device=None, n_cells=PIPE_CELLS, n_genes=PIPE_GENES,
             "n_rings": n_rings, "history": tr.history}
 
 
+# phase 9's columnar graph against phase 7's (tests/test_columnar.py's
+# fields and tolerances)
+GRAPH_INT_FIELDS = ("tx_gene", "tx_cluster", "tx_index", "tx_cell_encoding",
+                    "bd_cluster", "bd_index", "bd_cell_id", "tt_src",
+                    "tt_dst", "sg_src", "sg_dst", "cand_src", "cand_dst")
+GRAPH_FLOAT_FIELDS = ("tx_pos", "bd_x", "bd_pos", "gene_embedding",
+                      "tx_similarity", "bd_similarity")
+COLUMNAR_CHUNKS = 7               # phase 9's slide goes in as 7 chunks
+MIN_TABLE_AGREEMENT = 0.99        # phase 9's table vs phase 7's
+
+
+def columnar_graph_equal(a, b, where) -> None:
+    """The integer fields of two HostGraphs equal, the float fields within
+    rtol 1e-6, atol 1e-7."""
+    import numpy as np
+
+    for name in GRAPH_INT_FIELDS:
+        if not np.array_equal(np.asarray(getattr(a, name)),
+                              np.asarray(getattr(b, name))):
+            raise AssertionError(f"{where}: graph array {name} differs")
+    for name in GRAPH_FLOAT_FIELDS:
+        x, y = np.asarray(getattr(a, name)), np.asarray(getattr(b, name))
+        if not (x.shape == y.shape
+                and np.allclose(x, y, rtol=1e-6, atol=1e-7)):
+            raise AssertionError(f"{where}: graph array {name} differs")
+
+
+def gb(x) -> str:
+    """A memory reading in GB, or why there is none."""
+    return "not reported by this kernel" if x is None else f"{x:.3f} GB"
+
+
+def frame_chunks(df, n):
+    """``df`` in ``n`` consecutive row chunks."""
+    import numpy as np
+
+    edges = np.linspace(0, len(df), n + 1).astype(int)
+    for a, b in zip(edges[:-1], edges[1:]):
+        yield df.iloc[a:b]
+
+
+def run_plane(plane_dir, gene_names, out_dir, pcfg, tcfg,
+              device=None) -> dict:
+    """The run phase of the out-of-core path: the graph plane in
+    ``plane_dir`` loaded memmapped, tiled at ``pcfg``, fit at ``tcfg`` on
+    its margin tiles, predicted by ``predict_streaming`` and written by
+    ``write_dense``, with the kernel counts set to 0 just before the fit
+    and read just after the write.  Returns the walls by stage, the graph,
+    the table, the counts with the launches the run must have made on
+    CUDA, the peak device memory (MiB above what the caller held), the
+    trainer and its first predict and training tiles."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from segger_tpu_torch.data.assemble import load_host_graph_plane
+    from segger_tpu_torch.data.partition import (
+        build_tiling, make_fit_tiles, make_predict_tiles,
+    )
+    from segger_tpu_torch.data.writer import SegmentationWriter
+    from segger_tpu_torch.train.trainer import SeggerTrainer
+
+    walls = {}
+    t0 = time.perf_counter()
+    g = load_host_graph_plane(plane_dir, mmap=True)
+    tree = build_tiling(g, nodes_per_tile=pcfg.tiling_nodes_per_tile,
+                        mode=pcfg.tiling_mode,
+                        side_length=pcfg.tiling_side_length)
+    walls["load-plane"] = time.perf_counter() - t0
+    tr = SeggerTrainer(g, tcfg, device=device)
+    cuda = tr.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    tr.fit(make_fit_tiles(g, tree, margin=pcfg.tiling_margin_training))
+    walls["fit"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    best_sim, best_enc = tr.predict_streaming(make_predict_tiles(
+        g, tree, margin=pcfg.tiling_margin_prediction))
+    walls["predict"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gene_by_row = np.zeros(best_sim.size, np.int32)
+    gene_by_row[g.tx_index] = g.tx_gene
+    seg = SegmentationWriter(out_dir, save_anndata=False).write_dense(
+        best_sim, best_enc, gene_by_row, cell_ids=g.bd_cell_id,
+        gene_names=gene_names)
+    walls["write"] = time.perf_counter() - t0
+    if cuda:
+        torch.cuda.synchronize()
+    counts = read_counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20 if cuda \
+        else None
+    want, run = run_launches(
+        types.SimpleNamespace(graph=g, tree=tree, cfg=pcfg), tr,
+        tcfg.max_epochs)
+    return {"walls": walls, "graph": g, "table": seg, "counts": counts,
+            "want": want, "captures": dict(tr.captures), "peak_mib": peak,
+            "trainer": tr, "steps": len(tr.step_log),
+            "history": tr.history,
+            "n_tiles": (len(run["fit_tiles"]), len(run["ptiles"])),
+            "tiles": (first_tile(tr, run["pplans"][0]),
+                      first_tile(tr, run["fit_plans"][0]))}
+
+
+def table_agreement(a, b) -> float:
+    """Share of the rows of table ``a`` whose cell id (or its absence)
+    equals table ``b``'s for the same ``row_index``."""
+    import numpy as np
+    import pandas as pd
+
+    ia = pd.Series(a["segger_cell_id"].astype(object).to_numpy(),
+                   index=a["row_index"].to_numpy())
+    ib = pd.Series(b["segger_cell_id"].astype(object).to_numpy(),
+                   index=b["row_index"].to_numpy())
+    ib = ib.reindex(ia.index)
+    x, y = ia.to_numpy(), ib.to_numpy()
+    both_na = pd.isna(x) & pd.isna(y)
+    same = np.array([u == v for u, v in zip(x, y)], dtype=bool)
+    return float((both_na | (same & ~pd.isna(x))).mean())
+
+
+def canonical_edges(src, dst):
+    import numpy as np
+
+    src, dst = np.asarray(src, np.int64), np.asarray(dst, np.int64)
+    o = np.lexsort((dst, src))
+    return np.stack([src[o], dst[o]])
+
+
+def graph_stage_branches(synth, graph, pcfg) -> dict:
+    """Phase 9 (d): the graph stage's tx kNN and candidate join on
+    ``graph``'s transcripts and ``synth``'s prediction polygons, through
+    the native core (the pipeline's path) and through the KDTree plain
+    versions, each inside its ``graph.tx_knn`` / ``graph.prediction``
+    substage.  The edge sets must be equal, and the native ones equal
+    ``graph``'s own.  Returns both branches' substage walls."""
+    import numpy as np
+
+    from segger_tpu_torch.data.neighbors_host import (
+        kdtree_neighbors, polygon_areas_batch, prediction_graph,
+    )
+    from segger_tpu_torch.geometry.query import points_in_polygons_kdtree
+    from segger_tpu_torch.io.fields import StandardBoundaryFields
+    from segger_tpu_torch.utils_profiling import (
+        StageTimer, set_substage_timer, substage,
+    )
+
+    bd_f = StandardBoundaryFields()
+    btype = (bd_f.cell_value if pcfg.prediction_graph_mode == "cell"
+             else bd_f.nucleus_value)
+    by_id = {cid: p for (cid, b), p in synth.polygons.items() if b == btype}
+    rows = np.array([r for r, c in enumerate(graph.bd_cell_id)
+                     if c in by_id], np.int64)
+    polys = [np.asarray(by_id[graph.bd_cell_id[r]]) for r in rows]
+    pos = np.asarray(graph.tx_pos)
+    k, dist = pcfg.transcripts_graph_max_k, pcfg.transcripts_graph_max_dist
+    buffers = (np.sqrt(np.maximum(polygon_areas_batch(polys), 0) / np.pi)
+               * pcfg.prediction_graph_buffer_ratio)
+    walls, edges = {}, {}
+    for branch in ("native", "kdtree"):
+        timer = StageTimer()
+        prev = set_substage_timer(timer)
+        try:
+            with substage("graph.tx_knn"):
+                tt = kdtree_neighbors(pos, max_k=k, max_dist=dist,
+                                      backend=branch)
+            with substage("graph.prediction"):
+                if branch == "native":
+                    cand = prediction_graph(
+                        pos, graph.bd_pos, mode=pcfg.prediction_graph_mode,
+                        max_k=pcfg.prediction_graph_max_k,
+                        buffer_ratio=pcfg.prediction_graph_buffer_ratio,
+                        polygons=polys)
+                else:
+                    cand = points_in_polygons_kdtree(pos, polys,
+                                                     distances=buffers)
+        finally:
+            set_substage_timer(prev)
+        walls[branch] = dict(timer.seconds)
+        edges[branch] = (canonical_edges(*tt),
+                         canonical_edges(cand[0], rows[cand[1]]))
+    for name, i in (("tt", 0), ("cand", 1)):
+        if not np.array_equal(edges["native"][i], edges["kdtree"][i]):
+            raise AssertionError(f"native and KDTree {name} edge sets "
+                                 "differ")
+    if not (np.array_equal(edges["native"][0],
+                           canonical_edges(graph.tt_src, graph.tt_dst))
+            and np.array_equal(edges["native"][1], canonical_edges(
+                graph.cand_src, graph.cand_dst))):
+        raise AssertionError("the native branches' edges are not the "
+                             "pipeline graph's")
+    return {"walls": walls, "n_tt": int(edges["native"][0].shape[1]),
+            "n_cand": int(edges["native"][1].shape[1])}
+
+
+def neighbor_count_branches(A) -> dict:
+    """Common-neighbor counts of every edge of the CSR graph ``A``, by the
+    native sorted merge (the pipeline's path) and by its plain version,
+    the blocked SpGEMM (``data.clustering``): the counts must be equal.
+    Returns both walls."""
+    import numpy as np
+
+    from segger_tpu_torch import native
+    from segger_tpu_torch.data import clustering
+
+    coo = A.tocoo()
+    native.load()               # the build is not part of the wall
+    t0 = time.perf_counter()
+    a = clustering.common_neighbor_counts_spgemm(A.indptr, A.indices,
+                                                 coo.row, coo.col)
+    t_spgemm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = native.common_neighbor_counts(A.indptr, A.indices, coo.row, coo.col)
+    t_native = time.perf_counter() - t0
+    if not np.array_equal(a, b):
+        raise AssertionError("native and SpGEMM common-neighbor counts "
+                             "differ")
+    return {"spgemm_s": t_spgemm, "native_s": t_native, "n": A.shape[0],
+            "edges": int(A.nnz)}
+
+
+def graph_digest(graph) -> str:
+    """SHA-256 over every field of a HostGraph: name, dtype, shape,
+    bytes."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for f in dataclasses.fields(graph):
+        a = np.ascontiguousarray(getattr(graph, f.name))
+        h.update(f"{f.name} {a.dtype.str} {a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+_PREPARE = """
+import json, sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+from segger_tpu_torch.cli.main import main
+from segger_tpu_torch.cli.segment import run_segment
+rc = main({argv!r})
+import torch
+last = run_segment.last_run
+print(json.dumps({{"rc": rc, "cuda_initialized": torch.cuda.is_initialized(),
+                  "walls": last["walls"],
+                  "graph": chip_smoke.graph_digest(last["graph"])}}))
+"""
+
+
+def drive_outofcore(work_dir, device=None, n_cells=PIPE_CELLS,
+                    n_genes=PIPE_GENES, epochs=PIPE_EPOCHS,
+                    tx_per_cell=PIPE_TX_PER_CELL, pipeline_kw=None,
+                    train_kw=None, graph=None, table=None) -> dict:
+    """Phase 9: the out-of-core whole-slide path on phase 7's slide.
+
+    (a) the slide's DataFrame as ``ColumnarTranscripts.from_chunks`` in
+    ``COLUMNAR_CHUNKS`` chunks, spooled under ``work_dir``, through
+    ``ISTPipeline(...).load()``: the graph must equal ``graph`` (phase
+    7's; ``GRAPH_INT_FIELDS`` exactly, ``GRAPH_FLOAT_FIELDS`` within rtol
+    1e-6, atol 1e-7);
+    (b) that graph saved as a plane and run by :func:`run_plane` (fit,
+    ``predict_streaming``, ``write_dense``): the table passes
+    ``check_table`` and agrees with ``table`` (phase 7's) on at least
+    ``MIN_TABLE_AGREEMENT`` of the transcripts;
+    (c) the slide as a raw MERSCOPE directory through ``segment
+    --low-memory --graph-cache C --prepare-only`` in a child process,
+    which must initialize no CUDA, then ``segment --low-memory
+    --graph-cache C`` in this process, which must load the plane (no read,
+    no build), use the graph the prepare run built (equal digests) and
+    pass ``check_table``;
+    (d) :func:`graph_stage_branches` on phase 7's graph and
+    :func:`neighbor_count_branches` on the kNN graph of its cell
+    embeddings.
+
+    Returns the walls and substage walls, the peak and anonymous RSS, the
+    counts with the launches each run must have made on CUDA, and (b)'s
+    first tiles."""
+    import json as _json
+    import types
+
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from segger_tpu_torch.cli.main import main as cli
+    from segger_tpu_torch.cli.segment import run_segment
+    from segger_tpu_torch.data.assemble import save_host_graph_plane
+    from segger_tpu_torch.data.clustering import knn_adjacency
+    from segger_tpu_torch.data.columnar import ColumnarTranscripts
+    from segger_tpu_torch.data.partition import build_tiling
+    from segger_tpu_torch.data.synthetic import write_merscope_like
+    from segger_tpu_torch.pipeline import ISTPipeline, PipelineConfig
+    from segger_tpu_torch.train.trainer import TrainConfig
+    from segger_tpu_torch.utils import peak_rss_gb
+    from segger_tpu_torch.utils_profiling import (
+        AnonRSSSampler, StageTimer, set_substage_timer,
+    )
+
+    work = Path(work_dir)
+    cuda = device is None or torch.device(device).type == "cuda"
+    pcfg = PipelineConfig(seed=SEED, **(pipeline_kw or {}))
+    tcfg = TrainConfig(max_epochs=epochs, **(train_kw or {}))
+    synth = pipeline_slide(n_cells, n_genes, tx_per_cell)
+    truth = np.asarray(synth.truth_cell)
+
+    # (a) the columnar graph
+    sub = StageTimer()
+    prev = set_substage_timer(sub)
+    anon = AnonRSSSampler().start()
+    try:
+        t0 = time.perf_counter()
+        cols = ColumnarTranscripts.from_chunks(
+            frame_chunks(synth.transcripts, COLUMNAR_CHUNKS),
+            spool=work / "transcripts_spool")
+        walls = {"spool": time.perf_counter() - t0}
+        pipe = ISTPipeline(cols, synth.boundaries, synth.polygons, pcfg)
+        pipe.load()
+        walls.update(pipe.walls)
+        if graph is not None:
+            columnar_graph_equal(pipe.graph, graph, "columnar")
+        gene_names = pipe.adata.var.index.to_numpy().astype(str)
+
+        # (b) the plane: fit, predict_streaming, write_dense
+        t0 = time.perf_counter()
+        save_host_graph_plane(pipe.graph, work / "plane")
+        walls["save-plane"] = time.perf_counter() - t0
+        del pipe
+        run = run_plane(work / "plane", gene_names, work / "out", pcfg,
+                        tcfg, device)
+        walls.update(run["walls"])
+    finally:
+        set_substage_timer(prev)
+        anon_gb = anon.stop()
+    checked = check_table(run["table"], run["graph"], truth, "out-of-core")
+    agree = (table_agreement(run["table"], table) if table is not None
+             else None)
+    if agree is not None and not agree >= MIN_TABLE_AGREEMENT:
+        raise AssertionError(f"out-of-core table agrees with phase 7's on "
+                             f"{agree} of transcripts (need >= "
+                             f"{MIN_TABLE_AGREEMENT})")
+
+    # (c) the command line: prepare in a child process, then run here
+    raw = write_merscope_like(work / "merscope", synth)
+    cache = work / "cache"
+    flags = [*cli_flags(pipeline_kw), *cli_flags(train_kw),
+             "--max-epochs", str(epochs), "--seed", str(SEED),
+             "--low-memory", "--graph-cache", str(cache)]
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c", _PREPARE.format(root=str(ROOT), argv=[
+            "segment", "-i", str(raw), "-o", str(work / "prep"), *flags,
+            "--prepare-only"])],
+        capture_output=True, text=True, timeout=600, cwd=ROOT)
+    prep_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"segment --prepare-only exited "
+                             f"{res.returncode}:\n{res.stderr[-3000:]}")
+    prep = _json.loads(res.stdout.strip().splitlines()[-1])
+    if prep["rc"] != 0 or prep["cuda_initialized"]:
+        raise AssertionError(f"segment --prepare-only: {prep}")
+    reset_counts()
+    code = cli(["segment", "-i", str(work / "no-such-input"), "-o",
+                str(work / "cli-out"), *flags,
+                *(["--device", device] if device else [])])
+    if cuda:
+        torch.cuda.synchronize()
+    cli_counts = read_counts()
+    if code != 0:
+        raise AssertionError(f"segment --low-memory --graph-cache exited "
+                             f"{code}")
+    last = run_segment.last_run
+    run_segment.last_run = None
+    if set(last["walls"]) != {"load-graph", "fit", "predict", "write"}:
+        raise AssertionError(f"the cached run's stages {last['walls']}: "
+                             "it read or built")
+    if graph_digest(last["graph"]) != prep["graph"]:
+        raise AssertionError("the cached run's graph is not the one the "
+                             "prepare run built")
+    cli_tr = last["trainer"]
+    cli_graph = last["graph"]
+    cli_want, cli_run = run_launches(types.SimpleNamespace(
+        graph=cli_graph, tree=build_tiling(
+            cli_graph, nodes_per_tile=pcfg.tiling_nodes_per_tile,
+            mode=pcfg.tiling_mode, side_length=pcfg.tiling_side_length),
+        cfg=pcfg), cli_tr, epochs)
+    cli_table = check_table(
+        pd.read_parquet(work / "cli-out" / "segger_segmentation.parquet"),
+        cli_graph, truth, "out-of-core cli")
+
+    # (d) the native core against the plain versions
+    branches = (graph_stage_branches(synth, graph, pcfg)
+                if graph is not None else None)
+    counts_cmp = neighbor_count_branches(knn_adjacency(
+        np.asarray(run["graph"].bd_x, np.float64),
+        pcfg.cells_clusters_n_neighbors))
+    return {"walls": walls, "substages": dict(sub.seconds),
+            "peak_rss_gb": peak_rss_gb(), "anon_rss_gb": anon_gb,
+            "rss_sampled_gb": anon.peak_rss_gb,
+            "counts": run["counts"], "want": run["want"],
+            "captures": run["captures"], "peak_mib": run["peak_mib"],
+            "n_tx": run["graph"].n_tx, "n_bd": run["graph"].n_bd,
+            "n_tiles": run["n_tiles"], "steps": run["steps"],
+            "history": run["history"], "accuracy": checked["accuracy"],
+            "agreement": agree, "tiles": run["tiles"], "cfg": tcfg,
+            "cli": {"prepare_s": prep_s, "prepare_walls": prep["walls"],
+                    "walls": last["walls"], "counts": cli_counts,
+                    "want": cli_want, "captures": dict(cli_tr.captures),
+                    "accuracy": cli_table["accuracy"],
+                    "n_tiles": (len(cli_run["fit_tiles"]),
+                                len(cli_run["ptiles"]))},
+            "branches": branches, "neighbor_counts": counts_cmp}
+
+
 def main(argv) -> int:
     import torch
 
@@ -1148,11 +1589,18 @@ def main(argv) -> int:
     print(f"device: {torch.cuda.get_device_name(0)} | {card} | torch "
           f"{torch.__version__} cuda {torch.version.cuda}")
 
-    # -- phase 1: build
+    # -- phase 1: build (the CUDA kernels, one nvcc each, started
+    # together; meanwhile the host's native spatial core, one g++)
+    from segger_tpu_torch import native
+
     t0 = time.perf_counter()
-    report = _build.build()
+    with ThreadPoolExecutor(1) as ex:
+        host = ex.submit(native.load)
+        report = _build.build()
+        host.result()
     print(f"build: {time.perf_counter() - t0:.1f} s for "
-          f"{', '.join(report)}")
+          f"{', '.join(report)} and the native core "
+          f"({native.library_path().name})")
     for name, r in report.items():
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line:
@@ -1593,7 +2041,7 @@ def main(argv) -> int:
     # -- phase 8: the command line users run, on phase 7's slide written
     # as a raw Xenium directory: segment, then export
     with tempfile.TemporaryDirectory() as work_dir:
-        cli = drive_cli(work_dir, graph=pipe.pop("graph"))
+        cli = drive_cli(work_dir, graph=pipe["graph"])
     cli_counts = cli["counts"]
     print(f"cli: write_xenium_like -> segger-tpu-torch segment "
           f"--no-anndata --max-epochs {cli['epochs']} --seed {SEED} -> "
@@ -1619,6 +2067,83 @@ def main(argv) -> int:
     if cli["pools"] != {"fork": 0, "spawn": 1}:
         raise AssertionError(f"export boundary pools {cli['pools']}: the "
                              "spawn pool did not run")
+
+    # -- phase 9: the out-of-core whole-slide path on phase 7's slide:
+    # columnar transcripts, the memmapped graph plane, fit and
+    # predict_streaming on the card, the --low-memory --graph-cache
+    # command line, and the native spatial core against its plain versions
+    with tempfile.TemporaryDirectory() as work_dir:
+        ooc = drive_outofcore(work_dir, graph=pipe["graph"],
+                              table=pipe.pop("table"))
+    del pipe["graph"]
+    ooc_counts, ooc_cli = ooc["counts"], ooc["cli"]
+    print(f"out-of-core: phase 7's slide as ColumnarTranscripts in "
+          f"{COLUMNAR_CHUNKS} spooled chunks -> {ooc['n_tx']} tx, "
+          f"{ooc['n_bd']} cells; the columnar graph equals phase 7's; "
+          f"plane memmapped -> {ooc['n_tiles'][0]} fit and "
+          f"{ooc['n_tiles'][1]} predict tiles, {ooc['steps']} steps, "
+          f"predict_streaming + write_dense; accuracy "
+          f"{ooc['accuracy']:.4f}, agreement with phase 7's table "
+          f"{ooc['agreement']:.4f} (need >= {MIN_TABLE_AGREEMENT})")
+    print(f"out-of-core walls (s): " + json.dumps(
+        {k: round(v, 3) for k, v in ooc["walls"].items()}) + "; substages "
+        + json.dumps({k: round(v, 3) for k, v in ooc["substages"].items()})
+        + f"; peak_rss_gb {ooc['peak_rss_gb']:.2f}; over the phase, RSS "
+        f"peak {gb(ooc['rss_sampled_gb'])}, anonymous RSS peak "
+        f"{gb(ooc['anon_rss_gb'])} (sampled every 0.25 s); "
+        f"max_memory_allocated "
+        f"{ooc['peak_mib']:.1f} MiB above the earlier phases' tensors; "
+        f"captures {ooc['captures']} | {card}")
+    for rec in ooc["history"]:
+        print("out-of-core fit epoch " + json.dumps(rec))
+    print(f"out-of-core launches {ooc_counts}")
+    print(f"out-of-core cli: segment --low-memory --graph-cache "
+          f"--prepare-only in a child process, {ooc_cli['prepare_s']:.3f} s "
+          f"with the process start, no CUDA initialized, walls "
+          + json.dumps({k: round(v, 3)
+                        for k, v in ooc_cli["prepare_walls"].items()})
+          + "; then segment --low-memory --graph-cache here: walls "
+          + json.dumps({k: round(v, 3) for k, v in ooc_cli["walls"].items()})
+          + f", the plane's graph, accuracy {ooc_cli['accuracy']:.4f}, "
+          f"launches {ooc_cli['counts']} | {card}")
+    br, nc = ooc["branches"], ooc["neighbor_counts"]
+    print(f"native core (host of this card, {len(os.sched_getaffinity(0))} "
+          f"cores): phase 7's graph stage, {br['n_tt']} tt and "
+          f"{br['n_cand']} candidate edges, equal sets; substage walls (s) "
+          f"native {json.dumps(br['walls']['native'])}, KDTree "
+          f"{json.dumps(br['walls']['kdtree'])}; common-neighbor counts "
+          f"of the {nc['n']}-cell kNN graph ({nc['edges']} entries), "
+          f"equal: SpGEMM {nc['spgemm_s']:.4f} s, native "
+          f"{nc['native_s']:.4f} s | {card}")
+    for where, got, want, caps in (
+            ("out-of-core", ooc_counts, ooc["want"], ooc["captures"]),
+            ("out-of-core cli", ooc_cli["counts"], ooc_cli["want"],
+             ooc_cli["captures"])):
+        if not (caps["predict"] == 1 and caps["eval"] == 1
+                and 1 <= caps["train"] <= PIPE_EPOCHS):
+            raise AssertionError(f"{where} captures {caps}")
+        if got != want:
+            raise AssertionError(f"{where} launches {got}, expected "
+                                 f"{want}")
+    # the kernels against their plain versions on this path's first tiles
+    ptile, ftile = ooc.pop("tiles")
+    n_checked = len(checks)
+    for name, i, m in tile_tables(ptile):
+        checks.append(("K1", f"out-of-core tile {name}", check_edge_stage(
+            i, m, ptile.n_tx, bf16, rng, p_heads, p_hc)))
+    checks.append(("K5", "out-of-core tile cand", check_score(
+        ptile.cand.idx, ptile.cand.mask, ptile.n_bd, rng,
+        f=pcfg.out_channels)))
+    for name, i, m in tile_tables(ftile):
+        where = f"out-of-core train tile {name}"
+        checks.append(("K2", where, check_edge_stage(
+            i, m, ftile.n_tx, bf16, rng, p_heads, p_hc, "prng")))
+        for mode in ("prng", "nokeep"):
+            checks.append(("K3", where, check_edge_stage_bwd(
+                i, m, ftile.n_tx, bf16, rng, p_heads, p_hc, mode)))
+    for kernel, where, r in checks[n_checked:]:
+        print(f"{kernel} [{where}] " + json.dumps(r))
+    del ptile, ftile
 
     def summary(kernel, tile_prefix, modes=None):
         rs = [r for k, w, r in checks if k == kernel]
@@ -1726,6 +2251,22 @@ def main(argv) -> int:
          **summary("K7", "slide"), "extra_bytes": slide_extra["K7"],
          "library_ms": None},
     ]
+    # phase 9's launches and its first tiles' checks
+    ooc_paths = {"out-of-core": ooc_counts,
+                 "out-of-core cli": ooc_cli["counts"]}
+    for rec, get, kernel, prefix, modes in (
+            (kernels[0], lambda c: c["fwd"]["nokeep"], "K1",
+             "out-of-core tile", None),
+            (kernels[1], lambda c: c["fwd"]["prng"], "K2",
+             "out-of-core train tile", None),
+            (kernels[2], lambda c: c["bwd"]["prng"] + c["bwd"]["nokeep"],
+             "K3", "out-of-core train tile", ("prng",)),
+            (kernels[4], lambda c: c["score"], "K5", "out-of-core tile",
+             None)):
+        extra = {path: get(c) for path, c in ooc_paths.items()}
+        rec["launches"] += sum(extra.values())
+        rec["launches_by_path"].update(extra)
+        rec["out_of_core_tile"] = on_pipeline(kernel, prefix, modes)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,11 +5,17 @@ sources by the AST registry — defaults and help text live on the
 classes, never duplicated here (reference: cli/segment.py:14-22,63-313).
 The port's copy of ``segger_tpu.cli.segment``, with the same options
 and ``--device``: training and prediction run on CUDA unless
-``--device cpu`` is given, and the command raises without a card.  The
-options whose modules are not ported yet (sharding over several
-devices, the distributed and grid paths, columnar transcripts and the
-graph cache) stay in the parser and raise ``NotImplementedError``
-before any file is read.
+``--device cpu`` is given, and the command raises without a card.
+``--low-memory`` streams the transcripts into a disk-spooled columnar
+table (``OUT/transcripts_spool``) and predicts through the streaming
+max-merge; ``--graph-cache DIR`` loads the memmapped graph plane
+(``DIR/plane``, ``DIR/gene_names.npy``) when it is there, skipping the
+read and the build, and writes it after the build when it is not, in
+the JAX package's layout, so a cache crosses between the packages.
+With ``--prepare-only`` the command stops after the graph and touches
+no CUDA.  The options whose modules are not ported yet (sharding over
+several devices, the distributed and grid paths) stay in the parser and
+raise ``NotImplementedError`` before any file is read.
 """
 from __future__ import annotations
 
@@ -149,8 +155,6 @@ _UNPORTED = {
     "distributed_predict": "Queue 1 item 7 (parallel/)",
     "distributed_train": "Queue 1 item 7 (parallel/)",
     "grid": "Queue 1 item 7 (parallel/)",
-    "low_memory": "Queue 1 item 3 (data/columnar.py)",
-    "graph_cache": "Queue 1 item 3 (save_/load_host_graph_plane)",
 }
 
 
@@ -173,10 +177,12 @@ def _refuse_unported(args) -> None:
 
 
 def run_segment(args) -> int:
-    """Read the input, build features, graph and tiles, fit, predict and
-    write.  ``run_segment.last_run`` keeps the walls of the last call by
-    stage (read, features + graph, fit, predict, write), its pipeline and
-    its trainer."""
+    """Read the input (or load the cached graph plane), build features,
+    graph and tiles, fit, predict and write.  ``run_segment.last_run``
+    keeps the walls of the last call by stage (read, features + graph,
+    save-graph, or load-graph in their place; fit, predict, write), its
+    pipeline (None when the graph came from the cache), its graph and its
+    trainer."""
     _refuse_unported(args)
     if not args.prepare_only:
         import torch
@@ -195,11 +201,14 @@ def run_segment(args) -> int:
                 "--devices 1"
             )
 
-    from ..io import get_preprocessor
+    import numpy as np
+
+    from ..data.partition import (
+        build_tiling, make_fit_tiles, make_predict_tiles,
+    )
+    from ..data.writer import SegmentationWriter
     from ..pipeline import ISTPipeline, PipelineConfig
     from ..train.trainer import SeggerTrainer, TrainConfig
-    from ..data.partition import make_fit_tiles, make_predict_tiles
-    from ..data.writer import SegmentationWriter
 
     reg = _registry()
     pipe_kwargs = reg.collect(args, _PIPELINE_NAMES)
@@ -213,28 +222,60 @@ def run_segment(args) -> int:
                       default=str)
 
     walls = {}
-    t0 = time.perf_counter()
     cfg = PipelineConfig(**pipe_kwargs)
-    pp_kwargs = (
-        {"nucleus_strategy": args.nucleus_strategy}
-        if args.nucleus_strategy != "vendor" else {}
-    )
-    pp = get_preprocessor(
-        args.input_directory, platform=args.platform, **pp_kwargs
-    )
-    bd, polys = pp.boundaries
-    tx = pp.transcripts
-    walls["read"] = time.perf_counter() - t0
+    cache = Path(args.graph_cache) if args.graph_cache else None
+    pipeline = None
     t0 = time.perf_counter()
-    pipeline = ISTPipeline(tx, bd, polys, cfg)
-    pipeline.load()
-    graph, tree = pipeline.graph, pipeline.tree
-    gene_names = pipeline.adata.var.index.to_numpy().astype(str)
-    walls["features + graph"] = time.perf_counter() - t0
+    if cache is not None and (cache / "plane" / "tx_gene.npy").exists():
+        # a phased run: the cached plane is memmapped (edge arrays and
+        # tile indexes page from disk), nothing is read or built
+        from ..data.assemble import load_host_graph_plane
+
+        graph = load_host_graph_plane(cache / "plane")
+        gene_names = np.load(cache / "gene_names.npy", allow_pickle=False)
+        tree = build_tiling(
+            graph, nodes_per_tile=cfg.tiling_nodes_per_tile,
+            mode=cfg.tiling_mode, side_length=cfg.tiling_side_length,
+        )
+        walls["load-graph"] = time.perf_counter() - t0
+    else:
+        from ..io import get_preprocessor
+
+        pp_kwargs = (
+            {"nucleus_strategy": args.nucleus_strategy}
+            if args.nucleus_strategy != "vendor" else {}
+        )
+        pp = get_preprocessor(
+            args.input_directory, platform=args.platform, **pp_kwargs
+        )
+        bd, polys = pp.boundaries
+        if args.low_memory:
+            from ..data.columnar import ColumnarTranscripts
+
+            tx = ColumnarTranscripts.from_chunks(
+                pp.iter_transcripts(), spool=out_dir / "transcripts_spool")
+        else:
+            tx = pp.transcripts
+        walls["read"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pipeline = ISTPipeline(tx, bd, polys, cfg)
+        pipeline.load()
+        graph, tree = pipeline.graph, pipeline.tree
+        gene_names = pipeline.adata.var.index.to_numpy().astype(str)
+        walls["features + graph"] = time.perf_counter() - t0
+        if cache is not None:
+            from ..data.assemble import save_host_graph_plane
+
+            t0 = time.perf_counter()
+            cache.mkdir(parents=True, exist_ok=True)
+            save_host_graph_plane(graph, cache / "plane")
+            np.save(cache / "gene_names.npy", gene_names)
+            walls["save-graph"] = time.perf_counter() - t0
     run_segment.last_run = {"walls": walls, "pipeline": pipeline,
-                            "trainer": None}
+                            "graph": graph, "trainer": None}
     if args.prepare_only:
-        print("Graph prepared")
+        print("Graph prepared"
+              + (f"; cached to {cache}" if cache is not None else ""))
         return 0
 
     trainer = SeggerTrainer(
@@ -261,7 +302,8 @@ def run_segment(args) -> int:
             trainer.optimizer,
             config={**pipe_kwargs, **train_kwargs},
         )
-        pipeline.adata.write_h5ad(debug_dir / "adata_debug.h5ad")
+        if pipeline is not None:
+            pipeline.adata.write_h5ad(debug_dir / "adata_debug.h5ad")
 
     writer = SegmentationWriter(
         out_dir, save_anndata=not args.no_anndata, debug=args.debug
@@ -270,15 +312,31 @@ def run_segment(args) -> int:
     predict_tiles = make_predict_tiles(
         graph, tree, margin=cfg.tiling_margin_prediction,
     )
-    predictions = trainer.predict(predict_tiles)
-    walls["predict"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    writer.write(
-        predictions,
-        cell_ids=graph.bd_cell_id,
-        gene_names=gene_names,
-        transcripts=pipeline.transcripts,
-    )
+    if args.low_memory:
+        # the streaming path: an online max-merge into dense row-addressed
+        # arrays (O(n_rows) host memory), categorical cell ids throughout
+        best_sim, best_enc = trainer.predict_streaming(predict_tiles)
+        walls["predict"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gene_by_row = np.zeros(best_sim.size, np.int32)
+        gene_by_row[graph.tx_index] = graph.tx_gene
+        writer.write_dense(
+            best_sim, best_enc, gene_by_row,
+            cell_ids=graph.bd_cell_id, gene_names=gene_names,
+        )
+    else:
+        predictions = trainer.predict(predict_tiles)
+        walls["predict"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        writer.write(
+            predictions,
+            cell_ids=graph.bd_cell_id,
+            gene_names=gene_names,
+            # the h5ad export reads a DataFrame: --low-memory and
+            # plane-cached runs skip it (the parquet is written either way)
+            transcripts=(pipeline.transcripts
+                         if pipeline is not None else None),
+        )
     walls["write"] = time.perf_counter() - t0
     # training history as CSV (CSVLogger analogue, cli/segment.py:394)
     if trainer.history:

@@ -17,6 +17,9 @@ import numpy as np
 from scipy import sparse as sp
 from scipy.spatial import cKDTree
 
+from .. import native
+from ..utils_profiling import substage
+
 logger = logging.getLogger(__name__)
 
 # Above this many points, kNN switches from the exact search to the IVF
@@ -25,7 +28,8 @@ logger = logging.getLogger(__name__)
 # BLAS-parallel.
 ANN_THRESHOLD = 100_000
 # Entries of the two-hop product held at once by
-# ``common_neighbor_counts`` (about 0.4 GB of int64 values and indices).
+# ``common_neighbor_counts_spgemm`` (about 0.4 GB of int64 values and
+# indices).
 BLOCK_NNZ = 1 << 25
 
 
@@ -178,22 +182,14 @@ def _ivf_knn(X: np.ndarray, k: int, seed: int = 0,
     return best_i
 
 
-def knn_jaccard_graph(
+def knn_adjacency(
     X: np.ndarray, n_neighbors: int, ann_threshold: int = ANN_THRESHOLD,
     seed: int = 0,
 ) -> sp.csr_matrix:
-    """Build the Jaccard-weighted undirected kNN graph.
-
-    Matches cuGraph semantics: the kNN edge list (self included, as cuML
-    returns the query point itself) is treated as an undirected simple
-    graph; Jaccard weight of edge (u, v) = |N(u) & N(v)| / |N(u) | N(v)|
-    over graph neighborhoods.
-
-    Above ``ann_threshold`` points the kNN is IVF-approximate (exact
-    kNN is ~quadratic on CPU at PCA dimensionality; PhenoGraph's
-    Jaccard + Louvain chain is robust to small neighbor perturbations —
-    recall and end-to-end ARI pinned in the tests).
-    """
+    """The undirected simple kNN graph of ``X`` (CSR, float64 ones, sorted
+    rows, no self loops): each point's ``n_neighbors`` nearest, itself
+    included as cuML returns it, then symmetrized.  Above
+    ``ann_threshold`` points the kNN is IVF-approximate."""
     n = X.shape[0]
     k = min(n_neighbors, n)
     if n > ann_threshold:
@@ -201,9 +197,11 @@ def knn_jaccard_graph(
             "phenograph kNN: %d points > %d, using IVF approximate search",
             n, ann_threshold,
         )
-        idx = _ivf_knn(X, k, seed=seed)
+        with substage("phenograph.knn", items=n):
+            idx = _ivf_knn(X, k, seed=seed)
     else:
-        idx = exact_knn(X, k)
+        with substage("phenograph.knn", items=n):
+            idx = exact_knn(X, k)
 
     rows = np.repeat(np.arange(n), k)
     cols = idx.ravel()
@@ -215,38 +213,61 @@ def knn_jaccard_graph(
     A.setdiag(0)
     A.eliminate_zeros()
     A.sort_indices()
+    return A
 
-    # |N(u) & N(v)| for every existing edge, from row blocks of the
-    # two-hop product — never the whole (A @ A).multiply(A), which is
-    # tens of GB at millions of cells
-    Acoo = A.tocoo()
-    inter = common_neighbor_counts(
-        A.indptr, A.indices, Acoo.row, Acoo.col
-    ).astype(np.float64)
-    deg = np.asarray(A.sum(axis=1)).ravel()
-    union = deg[Acoo.row] + deg[Acoo.col] - inter
-    w = np.where(union > 0, inter / np.maximum(union, 1), 0.0)
-    J = sp.coo_matrix((w, (Acoo.row, Acoo.col)), shape=(n, n)).tocsr()
-    # keep zero-jaccard edges out; isolated nodes become singleton
-    # clusters
-    J.eliminate_zeros()
+
+def knn_jaccard_graph(
+    X: np.ndarray, n_neighbors: int, ann_threshold: int = ANN_THRESHOLD,
+    seed: int = 0,
+) -> sp.csr_matrix:
+    """Build the Jaccard-weighted undirected kNN graph.
+
+    Matches cuGraph semantics: the kNN edge list (self included, as cuML
+    returns the query point itself) is treated as an undirected simple
+    graph (:func:`knn_adjacency`); Jaccard weight of edge (u, v) =
+    |N(u) & N(v)| / |N(u) | N(v)| over graph neighborhoods.
+
+    Above ``ann_threshold`` points the kNN is IVF-approximate (exact
+    kNN is ~quadratic on CPU at PCA dimensionality; PhenoGraph's
+    Jaccard + Louvain chain is robust to small neighbor perturbations —
+    recall and end-to-end ARI pinned in the tests).
+    """
+    n = X.shape[0]
+    A = knn_adjacency(X, n_neighbors, ann_threshold=ann_threshold,
+                      seed=seed)
+
+    # |N(u) & N(v)| for every existing edge by the native core's sorted
+    # merge, O(E k) — never the whole (A @ A).multiply(A), which is tens
+    # of GB at millions of cells
+    with substage("phenograph.jaccard", items=A.nnz):
+        Acoo = A.tocoo()
+        inter = native.common_neighbor_counts(
+            A.indptr, A.indices, Acoo.row, Acoo.col
+        ).astype(np.float64)
+        deg = np.asarray(A.sum(axis=1)).ravel()
+        union = deg[Acoo.row] + deg[Acoo.col] - inter
+        w = np.where(union > 0, inter / np.maximum(union, 1), 0.0)
+        J = sp.coo_matrix((w, (Acoo.row, Acoo.col)), shape=(n, n)).tocsr()
+        # keep zero-jaccard edges out; isolated nodes become singleton
+        # clusters
+        J.eliminate_zeros()
     return J
 
 
-def common_neighbor_counts(
+def common_neighbor_counts_spgemm(
     indptr: np.ndarray,
     indices: np.ndarray,
     eu: np.ndarray,
     ev: np.ndarray,
 ) -> np.ndarray:
-    """Per-edge common-neighbor counts |N(u) & N(v)| of an undirected
-    simple graph in CSR form: the entries (u, v) of the two-hop product
-    A @ A, taken in row blocks whose products hold about ``BLOCK_NNZ``
-    entries each, so memory stays bounded and a hub of the kNN graph
-    costs its degree squared once.  (The JAX package's NumPy branch pads
-    every row to the largest degree and compares an edge's two rows
-    pairwise, E times the largest degree squared; its OpenMP sorted
-    merge gives these counts and waits for a later slice.)"""
+    """The plain version of the native core's per-edge common-neighbor
+    counts |N(u) & N(v)| of an undirected simple graph in CSR form
+    (what :func:`knn_jaccard_graph` runs): the entries (u, v) of the
+    two-hop product A @ A, taken in row blocks whose products hold about
+    ``BLOCK_NNZ`` entries each, so memory stays bounded and a hub of the
+    kNN graph costs its degree squared once.  (The JAX package's NumPy
+    branch pads every row to the largest degree and compares an edge's
+    two rows pairwise, E times the largest degree squared.)"""
     indptr = np.ascontiguousarray(indptr, dtype=np.int64)
     indices = np.ascontiguousarray(indices, dtype=np.int64)
     eu = np.ascontiguousarray(eu, dtype=np.int64)
@@ -408,7 +429,8 @@ def phenograph(
         X = X.astype(np.float64)
     J = knn_jaccard_graph(X, n_neighbors, ann_threshold=ann_threshold,
                           seed=seed)
-    labels = louvain(J, resolution=resolution, seed=seed)
+    with substage("phenograph.louvain", items=J.shape[0]):
+        labels = louvain(J, resolution=resolution, seed=seed)
     # sort clusters by size (desc), relabel, drop small ones
     uniq, counts = np.unique(labels, return_counts=True)
     order = np.argsort(-counts, kind="stable")

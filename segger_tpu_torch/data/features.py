@@ -33,6 +33,7 @@ from scipy import sparse as sp
 
 from ..compat.anndata_lite import AnnDataLite
 from ..io.fields import TrainingTranscriptFields
+from ..utils_profiling import substage
 from .clustering import phenograph
 from .pca import PCA
 
@@ -270,11 +271,12 @@ def setup_features_from_anndata(
     # cell embeddings: PCA fit on filtered cells, transform all
     # (anndata.py:254-258)
     filt = ad.obs["filtered"].to_numpy()
-    norm_dense = np.asarray(ad.layers["norm"].todense())
-    c_comp = min(cells_embedding_size, int(filt.sum()), n_genes)
-    model = PCA(n_components=c_comp, random_state=seed)
-    model.fit(norm_dense[filt])
-    ad.obsm["X_pca"] = model.transform(norm_dense).astype(np.float32)
+    with substage("features.pca_cells", items=ad.n_obs):
+        norm_dense = np.asarray(ad.layers["norm"].todense())
+        c_comp = min(cells_embedding_size, int(filt.sum()), n_genes)
+        model = PCA(n_components=c_comp, random_state=seed)
+        model.fit(norm_dense[filt])
+        ad.obsm["X_pca"] = model.transform(norm_dense).astype(np.float32)
 
     # cell clusters on filtered cells (anndata.py:261-270)
     cell_clusters = phenograph(

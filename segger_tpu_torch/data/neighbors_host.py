@@ -12,8 +12,9 @@ edge types of the heterogeneous graph
     by sqrt(area/pi)*buffer_ratio (neighbors.py:200-238), oriented
     ``(tx, bd)`` in every mode
 
-The C++ uniform-grid kNN of the JAX package (``csrc/spatial.cpp``) waits
-for a later slice; this is its KDTree branch.
+A bounded-radius kNN runs the native core's uniform-grid kNN
+(``csrc/spatial.cpp``); the chunked KDTree (``backend="kdtree"``) is its
+plain version and the search for an unbounded radius.
 """
 from __future__ import annotations
 
@@ -29,9 +30,30 @@ def kdtree_neighbors(
     max_dist: float = np.inf,
     chunk_size: int = 2_000_000,
     query: Optional[np.ndarray] = None,
+    backend: str = "auto",
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Chunked kNN: COO ``(rows, cols)`` int32 with rows = query index and
-    cols = neighbor index into ``points``."""
+    cols = neighbor index into ``points``, each row's neighbors nearest
+    first (reference: neighbors.py:122-163).
+
+    ``backend="native"``, or ``"auto"`` with a finite ``max_dist``, runs
+    the native uniform-grid kNN (ties by index); ``"kdtree"``, or
+    ``"auto"`` with an unbounded radius, the chunked KDTree (ties in the
+    tree's order: the same neighbor sets)."""
+    if backend not in ("auto", "native", "kdtree"):
+        raise ValueError(f"unknown kNN backend {backend!r}")
+    if backend == "native" or (backend == "auto" and np.isfinite(max_dist)):
+        from .. import native
+
+        idx = native.grid_knn(points, max_k=max_k, max_dist=max_dist,
+                              query=query)
+        valid = idx >= 0
+        # int32 and no (nq, k) row matrix: at whole-slide sizes int64 rows
+        # alone are multi-GB transients
+        rows = np.repeat(np.arange(idx.shape[0], dtype=np.int32),
+                         valid.sum(axis=1))
+        return rows, idx[valid].astype(np.int32)
+
     q = points if query is None else query
     n_pts = points.shape[0]
     tree = KDTree(points, leafsize=100)

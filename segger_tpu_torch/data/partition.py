@@ -237,6 +237,16 @@ class _EdgeGroups:
             [np.zeros(1, np.int64), np.cumsum(counts)]
         )
 
+    @classmethod
+    def from_arrays(cls, order: np.ndarray, indptr: np.ndarray):
+        """Wrap precomputed (possibly memmapped) index arrays: a graph
+        plane (``data.assemble.save_host_graph_plane``) stores them, so
+        the run phase never argsorts O(E) in RAM."""
+        self = cls.__new__(cls)
+        self.order = order
+        self.indptr = indptr
+        return self
+
     def rows(self, nodes: np.ndarray) -> np.ndarray:
         """Edge rows whose key is in ``nodes`` (grouped by node)."""
         starts = self.indptr[nodes]
@@ -268,7 +278,10 @@ def _edge_groups(graph: HostGraph) -> dict:
 def _tile_edges(graph: HostGraph, spec: TileSpec):
     """Tile-local edge lists ``(tt_s, tt_d, sg_s, sg_d, ca_s, ca_d)``
     (indices into the tile's sorted ``tx_rows``/``bd_rows``), cached on
-    the spec: ``tile_bucket`` and ``extract_tile`` both need them."""
+    the spec: ``tile_bucket`` and ``extract_tile`` both need them.  A
+    graph loaded as a memmapped plane is flagged ``_transient_tile_edges``:
+    its specs cache nothing, so the edges of all tiles are never resident
+    at once, and each call recomputes O(E_tile)."""
     cached = getattr(spec, "_edges", None)
     if cached is not None:
         return cached
@@ -287,6 +300,8 @@ def _tile_edges(graph: HostGraph, spec: TileSpec):
     bd_map[spec.bd_rows] = np.arange(spec.bd_rows.size, dtype=np.int32)
 
     def sel(rows_idx, src, dst, smap, dmap):
+        # rows_idx ascends within each node's group (the stable per-key
+        # order keeps the edge order), so plane reads stay near-sequential
         s = smap[src[rows_idx]]
         d = dmap[dst[rows_idx]]
         keep = (s >= 0) & (d >= 0)
@@ -300,8 +315,10 @@ def _tile_edges(graph: HostGraph, spec: TileSpec):
                      graph.cand_src, graph.cand_dst, tx_map, bd_map)
     tx_map[spec.tx_rows] = -1
     bd_map[spec.bd_rows] = -1
-    spec._edges = (tt_s, tt_d, sg_s, sg_d, ca_s, ca_d)
-    return spec._edges
+    edges = (tt_s, tt_d, sg_s, sg_d, ca_s, ca_d)
+    if not graph.__dict__.get("_transient_tile_edges", False):
+        spec._edges = edges
+    return edges
 
 
 def tile_bucket(

@@ -9,7 +9,11 @@ noise transcripts, in the standard schema
 both packages.  ``write_xenium_like``, ``write_merscope_like`` and
 ``write_synthetic_dataset`` write a slide as a raw Xenium v2 or MERSCOPE
 directory or as a standardized one, byte for byte as the JAX package's
-writers do; the columnar writers wait for the columnar transcript table.
+writers do.  ``make_synthetic_columnar`` streams the same generative
+model into a columnar table (disk-spooled with ``spool``) for
+whole-slide sizes, and ``write_merscope_like_columnar`` writes it as a
+raw MERSCOPE directory chunk by chunk; both give the JAX package's
+arrays and files at one seed.
 """
 from __future__ import annotations
 
@@ -250,6 +254,59 @@ def write_merscope_like(directory, data: "SyntheticData") -> Path:
     return directory
 
 
+def write_merscope_like_columnar(
+    directory, data: "SyntheticColumnar", chunk_rows: int = 4_000_000
+) -> Path:
+    """Raw Vizgen MERSCOPE-style directory from a columnar synthetic
+    slide, streamed in chunks (no whole-slide DataFrame): the
+    whole-slide analogue of :func:`write_merscope_like`."""
+    from ..io.fields import (
+        MerscopeTranscriptFields,
+        MerscopeBoundaryFields,
+    )
+
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    raw_t, raw_b = MerscopeTranscriptFields(), MerscopeBoundaryFields()
+    bd_f = StandardBoundaryFields()
+
+    cols = data.transcripts
+    gene_names = np.asarray(cols.gene_names).astype(str)
+    cell_ids = np.asarray(cols.cell_ids).astype(str)
+    path = directory / raw_t.filename
+    n = cols.n
+    for s in range(0, n, chunk_rows):
+        e = min(s + chunk_rows, n)
+        cc = np.asarray(cols.cell_code[s:e])
+        chunk = pd.DataFrame(
+            {
+                raw_t.x: np.asarray(cols.x[s:e]),
+                raw_t.y: np.asarray(cols.y[s:e]),
+                raw_t.feature: gene_names[np.asarray(cols.gene_code[s:e])],
+                raw_t.cell_id: np.where(
+                    cc >= 0, cell_ids[np.maximum(cc, 0)], "-1"
+                ),
+            }
+        )
+        chunk.to_csv(path, index=False, mode="w" if s == 0 else "a",
+                     header=(s == 0))
+
+    for fname, btype in (
+        (raw_b.cell_filename, bd_f.cell_value),
+        (raw_b.nucleus_filename, bd_f.nucleus_value),
+    ):
+        ids, blobs = [], []
+        for (cid, bt), poly in data.polygons.items():
+            if bt != btype:
+                continue
+            ids.append(cid)
+            blobs.append(_polygon_to_wkb(poly))
+        pd.DataFrame({raw_b.id: ids, "Geometry": blobs}).to_parquet(
+            directory / fname, index=False
+        )
+    return directory
+
+
 def write_synthetic_dataset(
     directory, seed: int = 0, **kwargs
 ) -> "SyntheticData":
@@ -276,3 +333,176 @@ def write_synthetic_dataset(
                  "vertex_x", "vertex_y"],
     ).to_parquet(directory / bd_f.filename)
     return data
+
+
+@dataclass
+class SyntheticColumnar:
+    """Out-of-core variant of :class:`SyntheticData`: transcripts as a
+    :class:`segger_tpu_torch.data.columnar.ColumnarTranscripts` (optionally
+    disk-spooled), truth as an int32 cell-code array (-1 background)."""
+
+    transcripts: object            # ColumnarTranscripts
+    boundaries: pd.DataFrame       # standard boundary table (small)
+    polygons: dict                 # (cell_id, type) -> (V, 2) float32
+    truth_code: np.ndarray         # (N,) int32 cell index, -1 background
+
+
+def make_synthetic_columnar(
+    n_cells: int = 200,
+    n_genes: int = 60,
+    n_cell_types: int = 5,
+    mean_tx_per_cell: int = 25,
+    background_rate: float = 0.05,
+    extent: float = 400.0,
+    cell_radius: float = 8.0,
+    nucleus_ratio: float = 0.55,
+    seed: int = 0,
+    cells_per_chunk: int = 200_000,
+    spool=None,
+) -> SyntheticColumnar:
+    """Streaming ground-truth synthetic slide at whole-slide scale.
+
+    Same generative model as :func:`make_synthetic` (jittered-grid
+    cells, per-type gene programs, gaussian transcript clouds, uniform
+    background) but emits transcripts chunk-by-cell-chunk straight into
+    typed columns: no whole-slide DataFrame, no object arrays.  With
+    ``spool`` set, transcript columns land in disk memmaps and peak RSS
+    is O(chunk) + O(n_cells).  The same seed gives the JAX package's
+    ``make_synthetic_columnar`` arrays.
+    """
+    from .columnar import ColumnarTranscripts, _SPOOL_DTYPES, _SPOOL_COLS
+
+    rng = np.random.default_rng(seed)
+    tx_f = StandardTranscriptFields()
+    bd_f = StandardBoundaryFields()
+
+    programs = rng.gamma(0.3, 1.0, size=(n_cell_types, n_genes))
+    programs /= programs.sum(axis=1, keepdims=True)
+
+    grid = int(np.ceil(np.sqrt(n_cells)))
+    pitch = extent / grid
+    ii, jj = np.divmod(np.arange(n_cells), grid)
+    centers = (np.stack([ii, jj], 1) + 0.5) * pitch \
+        + rng.normal(0, pitch * 0.15, (n_cells, 2))
+    types = rng.integers(0, n_cell_types, n_cells)
+    radii = cell_radius * rng.uniform(0.7, 1.3, n_cells)
+
+    gene_names = np.array([f"GENE_{g:03d}" for g in range(n_genes)])
+    width = len(str(max(n_cells - 1, 1)))
+    cell_ids = np.array(
+        [f"cell_{c:0{width}d}" for c in range(n_cells)]
+    )
+
+    parts = {c: [] for c in _SPOOL_COLS}
+    parts["truth"] = []
+    writers = {}
+    spool_dir = Path(spool) if spool is not None else None
+    if spool_dir is not None:
+        spool_dir.mkdir(parents=True, exist_ok=True)
+        writers = {
+            c: open(spool_dir / f"{c}.bin", "wb") for c in _SPOOL_COLS
+        }
+        writers["truth"] = open(spool_dir / "truth.bin", "wb")
+
+    def emit(name, arr):
+        dt = _SPOOL_DTYPES.get(name, np.int32)
+        if spool_dir is None:
+            parts[name].append(np.ascontiguousarray(arr, dt))
+        else:
+            writers[name].write(np.ascontiguousarray(arr, dt).tobytes())
+
+    written = 0
+    for c0 in range(0, n_cells, cells_per_chunk):
+        c1 = min(c0 + cells_per_chunk, n_cells)
+        counts = rng.poisson(mean_tx_per_cell, c1 - c0)
+        cell_of = np.repeat(np.arange(c0, c1), counts)
+        n_total = cell_of.size
+        sigma = (radii[cell_of] * 0.55)
+        pos = centers[cell_of] + rng.normal(0, 1, (n_total, 2)) \
+            * sigma[:, None]
+        genes = np.empty(n_total, np.int32)
+        tloc = types[cell_of]
+        for t in range(n_cell_types):
+            sel = tloc == t
+            genes[sel] = rng.choice(n_genes, int(sel.sum()),
+                                    p=programs[t])
+        d = np.sqrt(((pos - centers[cell_of]) ** 2).sum(axis=1))
+        r_cell = radii[cell_of]
+        compartment = np.where(
+            d <= r_cell * nucleus_ratio,
+            tx_f.nucleus_value,
+            np.where(d <= r_cell, tx_f.cytoplasmic_value,
+                     tx_f.extracellular_value),
+        ).astype(np.int8)
+        vendor = np.where(d <= r_cell, cell_of, -1).astype(np.int32)
+
+        # proportional share of the background, mixed into this chunk
+        n_bg = int(round(n_total * background_rate))
+        bg_pos = rng.uniform(0, extent, (n_bg, 2))
+        n_chunk = n_total + n_bg
+        perm = rng.permutation(n_chunk)
+
+        x = np.concatenate([pos[:, 0], bg_pos[:, 0]])[perm]
+        y = np.concatenate([pos[:, 1], bg_pos[:, 1]])[perm]
+        g = np.concatenate(
+            [genes, rng.integers(0, n_genes, n_bg).astype(np.int32)]
+        )[perm]
+        cc = np.concatenate(
+            [vendor, np.full(n_bg, -1, np.int32)]
+        )[perm]
+        comp = np.concatenate(
+            [compartment,
+             np.full(n_bg, tx_f.extracellular_value, np.int8)]
+        )[perm]
+        truth = np.concatenate(
+            [cell_of.astype(np.int32), np.full(n_bg, -1, np.int32)]
+        )[perm]
+
+        emit("x", x)
+        emit("y", y)
+        emit("gene_code", g)
+        emit("cell_code", cc)
+        emit("compartment", comp)
+        emit("row_index",
+             np.arange(written, written + n_chunk, dtype=np.int64))
+        emit("truth", truth)
+        written += n_chunk
+
+    # boundaries + polygons (O(n_cells); float32 vertices)
+    brows, polys = [], {}
+    for c in range(n_cells):
+        poly_c = _circle(centers[c], radii[c], rng=rng).astype(np.float32)
+        poly_n = _circle(
+            centers[c], radii[c] * nucleus_ratio, rng=rng
+        ).astype(np.float32)
+        brows.append((cell_ids[c], bd_f.cell_value, True))
+        brows.append((cell_ids[c], bd_f.nucleus_value, True))
+        polys[(cell_ids[c], bd_f.cell_value)] = poly_c
+        polys[(cell_ids[c], bd_f.nucleus_value)] = poly_n
+    bd = pd.DataFrame(
+        brows, columns=[bd_f.id, bd_f.boundary_type, bd_f.contains_nucleus]
+    )
+
+    if spool_dir is not None:
+        for w in writers.values():
+            w.close()
+        np.save(spool_dir / "gene_names.npy", gene_names)
+        np.save(spool_dir / "cell_ids.npy", cell_ids)
+        cols = ColumnarTranscripts.open_spool(spool_dir)
+        truth = np.memmap(spool_dir / "truth.bin", dtype=np.int32,
+                          mode="r")
+    else:
+        cols = ColumnarTranscripts(
+            x=np.concatenate(parts["x"]),
+            y=np.concatenate(parts["y"]),
+            gene_code=np.concatenate(parts["gene_code"]),
+            cell_code=np.concatenate(parts["cell_code"]),
+            compartment=np.concatenate(parts["compartment"]),
+            row_index=np.concatenate(parts["row_index"]),
+            gene_names=gene_names,
+            cell_ids=cell_ids,
+        )
+        truth = np.concatenate(parts["truth"])
+    return SyntheticColumnar(
+        transcripts=cols, boundaries=bd, polygons=polys, truth_code=truth
+    )

@@ -2,9 +2,10 @@
 labeling invariant.
 
 Boxes are half-open [x0, x1) x [y0, y1) and split at midpoints, so every
-point lies in exactly one leaf by construction.  This is the NumPy path of
-the JAX package's quadtree; its C++ grid join (``csrc/spatial.cpp``)
-waits for a later slice and gives the same (point, leaf) pairs.
+point lies in exactly one leaf by construction.  The prediction halo's
+(point, leaf) membership runs the native core's grid join
+(``csrc/spatial.cpp``); ``expanded_label_multi_plain`` is its NumPy
+version.
 """
 from __future__ import annotations
 
@@ -180,9 +181,18 @@ class QuadTree:
     ) -> tuple[np.ndarray, np.ndarray]:
         """(point_idx, leaf_idx) pairs for leaves expanded by ``margin``:
         the prediction halo membership (a point can belong to several
-        expanded leaves).  Each expanded leaf scans only the points of
-        the leaves its box intersects, plus the points outside the
-        root."""
+        expanded leaves), from the native core's grid join, in the order
+        its threads finish."""
+        from .. import native
+
+        return native.points_in_boxes(points, self.leaf_bounds, margin)
+
+    def expanded_label_multi_plain(
+        self, points: np.ndarray, margin: float
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """:meth:`expanded_label_multi` in NumPy (the plain version): each
+        expanded leaf scans only the points of the leaves its box
+        intersects, plus the points outside the root."""
         points = np.asarray(points, dtype=np.float64)
         x, y = points[:, 0], points[:, 1]
         labels = self.label(points)

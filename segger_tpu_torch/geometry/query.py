@@ -8,10 +8,11 @@ by an exact vectorized test:
   inside OR distance-to-boundary <= d
 
 which is the exact Minkowski-sum ("buffer by d") containment — stronger
-than the reference's approximate geometric buffer + contains.  NumPy
-vectorized per polygon over its candidate points.  This is the KDTree
-branch of ``segger_tpu.geometry.query``; its C++ grid join
-(``csrc/spatial.cpp``) gives the same pairs and waits for a later slice.
+than the reference's approximate geometric buffer + contains.
+:func:`points_in_polygons` runs the native core's grid-hash join
+(``csrc/spatial.cpp``, one polygon per OpenMP task);
+:func:`points_in_polygons_kdtree`, NumPy vectorized per polygon over its
+candidate points, is its plain version and gives the same pairs.
 """
 from __future__ import annotations
 
@@ -71,13 +72,29 @@ def points_in_polygons(
     points: np.ndarray,
     polygons: Sequence[np.ndarray],
     distances: Optional[np.ndarray] = None,
-    batch_points: int = 4096,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Join: which points fall in which (buffered) polygons.
 
-    Returns ``(point_idx, polygon_idx)`` COO arrays.  KDTree prefilter on
-    polygon bounding radius keeps the exact test O(candidates).
-    """
+    Returns ``(point_idx, polygon_idx)`` int64 COO arrays in canonical
+    order, from the native core's grid-hash join."""
+    from .. import native
+
+    points = np.asarray(points, dtype=np.float64)
+    if distances is None:
+        distances = np.zeros(len(polygons))
+    return _canonical_join_order(
+        *native.points_in_polygons(points, polygons, distances))
+
+
+def points_in_polygons_kdtree(
+    points: np.ndarray,
+    polygons: Sequence[np.ndarray],
+    distances: Optional[np.ndarray] = None,
+    batch_points: int = 4096,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`points_in_polygons` as a KDTree prefilter on each polygon's
+    bounding radius and the exact NumPy test on its candidates (the plain
+    version)."""
     points = np.asarray(points, dtype=np.float64)
     if distances is None:
         distances = np.zeros(len(polygons))
@@ -107,9 +124,9 @@ def points_in_polygons(
 def _canonical_join_order(p_idx: np.ndarray, g_idx: np.ndarray):
     """Polygon-major, point-minor edge order.
 
-    The KDTree path follows ball-query traversal order (and a grid join
-    appends per-thread buffers in completion order): the same edge SET
-    in a run-dependent ORDER, which would leak into padded-CSR slot
+    The grid join appends per-thread buffers in completion order (and
+    the KDTree path follows ball-query traversal order): the same edge
+    SET in a run-dependent ORDER, which would leak into padded-CSR slot
     assignment and the candidate argmax tie-breaks.  One lexsort makes
     every path canonical."""
     order = np.lexsort((p_idx, g_idx))

@@ -7,8 +7,12 @@ src/segger/cli/segment.py:336-413), and the port's copy of
 whole-slide graph on the host, tile it, train and predict on the GPU
 (``SeggerTrainer``), and write the assignment table.
 
-``ISTPipeline.run`` trains and predicts on CUDA unless it is given
-``device="cpu"``, and raises when no CUDA device is present.
+The transcripts are a standardized DataFrame or, for slides too large
+for one (the out-of-core path), a
+:class:`~segger_tpu_torch.data.columnar.ColumnarTranscripts` table whose
+columns may be disk-backed memmaps.  ``ISTPipeline.run`` trains and
+predicts on CUDA unless it is given ``device="cpu"``, and raises when
+no CUDA device is present.
 ``ISTPipeline.walls`` holds each stage's host seconds (features, graph,
 tiling, fit, predict, write).
 """
@@ -25,13 +29,17 @@ import numpy as np
 import pandas as pd
 
 from .compat.anndata_lite import AnnDataLite
-from .data.assemble import HostGraph, build_host_graph
-from .data.features import setup_features
+from .data.assemble import (
+    HostGraph, build_host_graph, build_host_graph_columnar,
+)
+from .data.columnar import ColumnarTranscripts, anndata_from_columnar
+from .data.features import setup_features, setup_features_from_anndata
 from .data.partition import build_tiling, make_fit_tiles, make_predict_tiles
 from .data.writer import SegmentationWriter
 from .geometry.morphology import polygon_props
 from .io.fields import StandardBoundaryFields, StandardTranscriptFields
 from .train.trainer import SeggerTrainer, TrainConfig, resolve_device
+from .utils_profiling import substage
 
 logger = logging.getLogger(__name__)
 
@@ -71,20 +79,19 @@ class ISTPipeline:
 
     def __init__(
         self,
-        transcripts: pd.DataFrame,
+        transcripts,
         boundaries: pd.DataFrame,
         polygons: dict,
         config: Optional[PipelineConfig] = None,
     ):
-        """``transcripts``: a standardized DataFrame (columnar tables wait
-        for a later slice); ``polygons``: (cell_id, boundary_type) ->
-        (V, 2) vertex array."""
-        if not isinstance(transcripts, pd.DataFrame):
+        """``transcripts``: a standardized DataFrame, or a
+        :class:`ColumnarTranscripts` table for out-of-core slides (typed
+        arrays or disk-backed memmaps instead of object columns);
+        ``polygons``: (cell_id, boundary_type) -> (V, 2) vertex array."""
+        if not isinstance(transcripts, (pd.DataFrame, ColumnarTranscripts)):
             raise TypeError(
-                "ISTPipeline takes a standardized transcript DataFrame; "
-                f"got {type(transcripts).__name__} (columnar transcript "
-                "tables are not ported yet)"
-            )
+                "ISTPipeline takes a standardized transcript DataFrame or a "
+                f"ColumnarTranscripts table; got {type(transcripts).__name__}")
         self.cfg = PipelineConfig() if config is None else config
         self.tx_f = StandardTranscriptFields()
         self.bd_f = StandardBoundaryFields()
@@ -108,6 +115,7 @@ class ISTPipeline:
         """Feature + graph construction (reference: data_module.py:171-286)."""
         cfg, tx_f, bd_f = self.cfg, self.tx_f, self.bd_f
         tx = self.transcripts
+        columnar = isinstance(tx, ColumnarTranscripts)
 
         # segmentation compartment mask (data_module.py:184-200)
         if cfg.segmentation_graph_mode == "nucleus":
@@ -119,10 +127,15 @@ class ISTPipeline:
                 f"Unrecognized segmentation graph mode: "
                 f"'{cfg.segmentation_graph_mode}'."
             )
-        seg_mask = np.asarray(
-            tx[tx_f.compartment].isin(compartments).to_numpy()
-        ).copy()
-        seg_mask &= tx[tx_f.cell_id].notna().to_numpy()
+        if columnar:
+            seg_mask = np.isin(np.asarray(tx.compartment),
+                               np.asarray(compartments, np.int8))
+            seg_mask &= np.asarray(tx.cell_code) >= 0
+        else:
+            seg_mask = np.asarray(
+                tx[tx_f.compartment].isin(compartments).to_numpy()
+            ).copy()
+            seg_mask &= tx[tx_f.cell_id].notna().to_numpy()
 
         gene_corr_reference = None
         if cfg.gene_corr_reference_path is not None:
@@ -142,26 +155,35 @@ class ISTPipeline:
 
         logger.info("setup_features on %d masked transcripts",
                     int(seg_mask.sum()))
+        feature_kwargs = dict(
+            cells_embedding_size=cfg.cells_embedding_size,
+            cells_min_counts=cfg.cells_min_counts,
+            cells_clusters_n_neighbors=cfg.cells_clusters_n_neighbors,
+            cells_clusters_resolution=cfg.cells_clusters_resolution,
+            genes_min_counts=cfg.genes_min_counts,
+            genes_clusters_n_neighbors=cfg.genes_clusters_n_neighbors,
+            genes_clusters_resolution=cfg.genes_clusters_resolution,
+            compute_morphology=(
+                cfg.cells_representation_mode == "morphology"
+            ),
+            gene_corr_reference=gene_corr_reference,
+            gene_missing_strategy=cfg.gene_missing_strategy,
+            morphology_props=morph,
+            seed=cfg.seed,
+        )
         with self._stage("features"):
-            self.adata = setup_features(
-                transcripts=tx[seg_mask],
-                boundaries=self.boundaries,
-                cell_column=tx_f.cell_id,
-                cells_embedding_size=cfg.cells_embedding_size,
-                cells_min_counts=cfg.cells_min_counts,
-                cells_clusters_n_neighbors=cfg.cells_clusters_n_neighbors,
-                cells_clusters_resolution=cfg.cells_clusters_resolution,
-                genes_min_counts=cfg.genes_min_counts,
-                genes_clusters_n_neighbors=cfg.genes_clusters_n_neighbors,
-                genes_clusters_resolution=cfg.genes_clusters_resolution,
-                compute_morphology=(
-                    cfg.cells_representation_mode == "morphology"
-                ),
-                gene_corr_reference=gene_corr_reference,
-                gene_missing_strategy=cfg.gene_missing_strategy,
-                morphology_props=morph,
-                seed=cfg.seed,
-            )
+            if columnar:
+                with substage("features.count_matrix", items=tx.n):
+                    ad0 = anndata_from_columnar(tx, mask=seg_mask)
+                self.adata = setup_features_from_anndata(
+                    ad0, **feature_kwargs)
+            else:
+                self.adata = setup_features(
+                    transcripts=tx[seg_mask],
+                    boundaries=self.boundaries,
+                    cell_column=tx_f.cell_id,
+                    **feature_kwargs,
+                )
 
         # prediction polygons: mode-matching boundary type
         pred_type = (
@@ -176,27 +198,30 @@ class ISTPipeline:
         ]
 
         logger.info("building whole-slide graph")
+        graph_kwargs = dict(
+            adata=self.adata,
+            segmentation_mask=seg_mask,
+            cells_embedding_key=(
+                "X_pca"
+                if cfg.cells_representation_mode == "pca"
+                else "X_morphology"
+            ),
+            transcripts_graph_max_k=cfg.transcripts_graph_max_k,
+            transcripts_graph_max_dist=cfg.transcripts_graph_max_dist,
+            prediction_graph_mode=cfg.prediction_graph_mode,
+            prediction_graph_max_k=cfg.prediction_graph_max_k,
+            prediction_graph_buffer_ratio=cfg.prediction_graph_buffer_ratio,
+            polygons=[p for _, p in poly_items] or None,
+            polygon_cell_ids=np.array([c for c, _ in poly_items])
+            if poly_items
+            else None,
+        )
         with self._stage("graph"):
-            self.graph = build_host_graph(
-                transcripts=tx,
-                adata=self.adata,
-                segmentation_mask=seg_mask,
-                cells_embedding_key=(
-                    "X_pca"
-                    if cfg.cells_representation_mode == "pca"
-                    else "X_morphology"
-                ),
-                transcripts_graph_max_k=cfg.transcripts_graph_max_k,
-                transcripts_graph_max_dist=cfg.transcripts_graph_max_dist,
-                prediction_graph_mode=cfg.prediction_graph_mode,
-                prediction_graph_max_k=cfg.prediction_graph_max_k,
-                prediction_graph_buffer_ratio=(
-                    cfg.prediction_graph_buffer_ratio),
-                polygons=[p for _, p in poly_items] or None,
-                polygon_cell_ids=np.array([c for c, _ in poly_items])
-                if poly_items
-                else None,
-            )
+            if columnar:
+                self.graph = build_host_graph_columnar(tx, **graph_kwargs)
+            else:
+                self.graph = build_host_graph(transcripts=tx,
+                                              **graph_kwargs)
 
         logger.info("tiling (%s, %d nodes/tile)", cfg.tiling_mode,
                     cfg.tiling_nodes_per_tile)
@@ -247,6 +272,11 @@ class ISTPipeline:
                 predictions,
                 cell_ids=self.graph.bd_cell_id,
                 gene_names=self.adata.var.index.to_numpy().astype(str),
-                transcripts=self.transcripts,
+                # the h5ad export reads a DataFrame; a columnar run skips
+                # it (the assignment table is written either way)
+                transcripts=(
+                    self.transcripts
+                    if isinstance(self.transcripts, pd.DataFrame) else None
+                ),
             )
         return seg

@@ -55,6 +55,7 @@ from ..models.gatv2 import BufferSeedSource, torch_seed_source
 from ..ops.gather_agg import score_candidates
 from ..ops.padded_csr import PaddedCSR
 from ..ops.postgather import seed_int32
+from ..utils_profiling import substage
 from .checkpoint import load_checkpoint, save_checkpoint
 from .graphs import CompiledStep, StepInputs, signature, tile_arrays
 from .prefetch import PrefetchIterator
@@ -145,10 +146,12 @@ class SeggerTrainer:
             use_positional_embeddings=cfg.use_positional_embeddings,
             dtype=self.dtype,
         )
+        # owned copies: a graph plane's arrays are read-only memmaps,
+        # which torch.from_numpy would share (and warn about)
         self.tx_similarity = torch.from_numpy(
-            np.asarray(graph.tx_similarity, np.float32)).to(self.device)
+            np.array(graph.tx_similarity, np.float32)).to(self.device)
         self.bd_similarity = torch.from_numpy(
-            np.asarray(graph.bd_similarity, np.float32)).to(self.device)
+            np.array(graph.bd_similarity, np.float32)).to(self.device)
         self.initialized = False
         self.optimizer: Optional[torch.optim.Adam] = None
         self.history: List[Dict] = []
@@ -179,8 +182,8 @@ class SeggerTrainer:
         model.reset_parameters(gen)
         with torch.no_grad():
             model.gene_embedding.embedding.copy_(
-                torch.from_numpy(np.asarray(self.graph.gene_embedding,
-                                            np.float32)))
+                torch.from_numpy(np.array(self.graph.gene_embedding,
+                                          np.float32)))
         self.model = model.to(self.device)
         self.initialized = True
         self._make_optimizer()
@@ -240,7 +243,8 @@ class SeggerTrainer:
                 values, self.cfg.edges_per_batch, rng=rng)
         else:
             bins = best_fit_decreasing(values, self.cfg.edges_per_batch)
-        all_shapes = [tile_bucket(self.graph, s) for s in tiles]
+        with substage("plan.tile_bucket", items=len(tiles)):
+            all_shapes = [tile_bucket(self.graph, s) for s in tiles]
         per_bin = []
         for bin_idx in bins:
             bucket = merge_buckets([all_shapes[i] for i in bin_idx])
@@ -263,12 +267,14 @@ class SeggerTrainer:
         (spec identity, bucket shape).  ``cache=False`` reads hits but
         inserts nothing (tiles that nothing will read again)."""
         if self.cfg.tile_cache_gb <= 0:
-            return extract_tile(self.graph, spec, bucket)
+            with substage("extract.tile"):
+                return extract_tile(self.graph, spec, bucket)
         key = (id(spec), dataclasses.astuple(bucket))
         hit = self._tile_cache.get(key)
         if hit is not None:
             return hit[1]
-        tile = extract_tile(self.graph, spec, bucket)
+        with substage("extract.tile"):
+            tile = extract_tile(self.graph, spec, bucket)
         if not cache:
             return tile
         nbytes = 0

@@ -40,7 +40,9 @@ def print_free_mem() -> None:
 
 
 def peak_rss_gb() -> float:
-    """Process high-water-mark RSS in GB (VmHWM)."""
+    """Process high-water-mark RSS in GB: VmHWM, or where the kernel does
+    not report it (a sandboxed one may not), ``getrusage``'s
+    ``ru_maxrss``, the same high-water mark."""
     try:
         with open("/proc/self/status") as f:
             for line in f:
@@ -48,7 +50,9 @@ def peak_rss_gb() -> float:
                     return int(line.split()[1]) / 1e6
     except OSError:
         pass
-    return float("nan")
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
 
 
 class MemFilter(logging.Filter):

@@ -315,8 +315,6 @@ UNPORTED = {
     "--distributed-train": ([], "Queue 1 item 7"),
     "--distributed-predict": ([], "Queue 1 item 7"),
     "--grid": (["2x2"], "Queue 1 item 7"),
-    "--low-memory": ([], "Queue 1 item 3"),
-    "--graph-cache": (["CACHE"], "Queue 1 item 3"),
     "--devices": (["2"], "Queue 1 item 7"),
 }
 
@@ -327,7 +325,6 @@ def test_unported_option_raises_before_reading(option, tmp_path):
     item, before the input is read (the input does not exist) and before
     anything is written."""
     values, item = UNPORTED[option]
-    values = [str(tmp_path / v) if v == "CACHE" else v for v in values]
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         main(["segment", "-i", str(tmp_path / "missing"), "-o",
               str(tmp_path / "out"), "--device", "cpu", option, *values])
@@ -358,6 +355,134 @@ def test_prepare_only_needs_no_device(dataset, tmp_path):
     last = t_segment.run_segment.last_run
     assert last["trainer"] is None and last["pipeline"].graph.n_bd == 120
     assert not (out / "segger_segmentation.parquet").exists()
+
+
+def _same_table(got, want):
+    """Two segmentation tables with the same rows, cells, genes and
+    convergence, similarities within float32 rounding (``write`` and
+    ``write_dense`` build the same table by two routes)."""
+    a = got.sort_values("row_index").reset_index(drop=True)
+    b = want.sort_values("row_index").reset_index(drop=True)
+    np.testing.assert_array_equal(a["row_index"], b["row_index"])
+    for col in ("segger_cell_id", "segger_gene"):
+        x = a[col].astype(object).to_numpy()
+        y = b[col].astype(object).to_numpy()
+        np.testing.assert_array_equal(pd.isna(x), pd.isna(y))
+        np.testing.assert_array_equal(x[~pd.isna(x)], y[~pd.isna(y)])
+    np.testing.assert_array_equal(a["converged"], b["converged"])
+    for col in ("segger_similarity", "similarity_threshold"):
+        np.testing.assert_allclose(a[col], b[col], rtol=1e-6, atol=1e-9)
+
+
+@pytest.fixture(scope="module")
+def low_memory_cached(dataset, tmp_path_factory):
+    """``segment --low-memory --graph-cache`` on the dataset: the first run
+    reads, builds and writes the cache."""
+    work = tmp_path_factory.mktemp("port_cli_lowmem")
+    assert main(["segment", "-i", str(dataset), "-o", str(work / "out"),
+                 "--device", "cpu", "--low-memory", "--graph-cache",
+                 str(work / "cache"), *flags(PIPE), *flags(TRAIN)]) == 0
+    return work, t_segment.run_segment.last_run
+
+
+def test_low_memory_segment_equals_dataframe_segment(low_memory_cached,
+                                                      segmented):
+    """The columnar table streamed into a spool, the same graph as the
+    DataFrame run's, predict_streaming + write_dense: the same table."""
+    work, last = low_memory_cached
+    assert set(last["walls"]) == {"read", "features + graph", "save-graph",
+                                  "fit", "predict", "write"}
+    assert (work / "out" / "transcripts_spool" / "x.bin").exists()
+    assert (work / "cache" / "plane" / "_eg_tt_order.npy").exists()
+    # the columnar graph: integers equal, floats within rounding (the
+    # centroids are summed in another order)
+    want_graph = segmented[1]["pipeline"].graph
+    for f in dataclasses.fields(want_graph):
+        a, b = getattr(last["graph"], f.name), getattr(want_graph, f.name)
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7,
+                                       err_msg=f.name)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=f.name)
+    assert not (work / "out" / "segger_anndata.h5ad").exists()
+    _same_table(
+        pd.read_parquet(work / "out" / "segger_segmentation.parquet"),
+        pd.read_parquet(segmented[0] / "segger_segmentation.parquet"))
+
+
+def test_graph_cache_run_loads_the_plane(low_memory_cached, tmp_path):
+    """The second run finds the cache: it reads no input (there is none),
+    builds nothing, trains on the memmapped plane and writes the same
+    parquet."""
+    work, _ = low_memory_cached
+    assert main(["segment", "-i", str(tmp_path / "missing"), "-o",
+                 str(tmp_path / "out"), "--device", "cpu", "--low-memory",
+                 "--graph-cache", str(work / "cache"), *flags(PIPE),
+                 *flags(TRAIN)]) == 0
+    last = t_segment.run_segment.last_run
+    assert set(last["walls"]) == {"load-graph", "fit", "predict", "write"}
+    assert last["pipeline"] is None
+    assert last["graph"].__dict__.get("_transient_tile_edges") is True
+    pd.testing.assert_frame_equal(
+        pd.read_parquet(tmp_path / "out" / "segger_segmentation.parquet"),
+        pd.read_parquet(work / "out" / "segger_segmentation.parquet"))
+
+
+_NO_CUDA = """
+import json, sys
+import torch
+
+def refuse(*a, **k):
+    raise AssertionError("CUDA touched")
+
+torch.cuda.is_available = torch.cuda.device_count = refuse
+torch.cuda._lazy_init = torch.cuda.init = refuse
+from segger_tpu_torch.cli.main import main
+rc = main({argv!r})
+print(json.dumps({{"rc": rc, "cuda": torch.cuda.is_initialized()}}))
+"""
+
+
+def test_prepare_only_graph_cache_touches_no_cuda(dataset, tmp_path):
+    """``--low-memory --graph-cache --prepare-only`` builds and caches the
+    graph in a process where any CUDA query raises."""
+    argv = ["segment", "-i", str(dataset), "-o", str(tmp_path / "out"),
+            "--low-memory", "--graph-cache", str(tmp_path / "cache"),
+            "--prepare-only", *flags(PIPE)]
+    res = subprocess.run([sys.executable, "-c", _NO_CUDA.format(argv=argv)],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=ROOT)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().splitlines()[-1] == '{"rc": 0, "cuda": false}'
+    assert (tmp_path / "cache" / "plane" / "tx_gene.npy").exists()
+    assert (tmp_path / "cache" / "gene_names.npy").exists()
+    assert not (tmp_path / "out" / "segger_segmentation.parquet").exists()
+
+
+def test_jax_prepared_cache_runs_in_port(dataset, low_memory_cached,
+                                         tmp_path):
+    """The phased workflow across the packages: the JAX package's
+    ``segment --prepare-only --graph-cache`` writes the plane, the port's
+    ``segment --graph-cache`` trains on it; the plane is the port's own
+    and the table the port's cached run's."""
+    work, _ = low_memory_cached
+    cache = tmp_path / "cache"
+    assert j_main(["segment", "-i", str(dataset), "-o", str(tmp_path / "j"),
+                   "--low-memory", "--graph-cache", str(cache),
+                   "--prepare-only", *flags(PIPE)]) == 0
+    for f in sorted((work / "cache" / "plane").iterdir()):
+        np.testing.assert_array_equal(
+            np.load(cache / "plane" / f.name),
+            np.load(f), err_msg=f.name)
+    np.testing.assert_array_equal(np.load(cache / "gene_names.npy"),
+                                  np.load(work / "cache" / "gene_names.npy"))
+    assert main(["segment", "-i", str(tmp_path / "missing"), "-o",
+                 str(tmp_path / "out"), "--device", "cpu", "--low-memory",
+                 "--graph-cache", str(cache), *flags(PIPE),
+                 *flags(TRAIN)]) == 0
+    pd.testing.assert_frame_equal(
+        pd.read_parquet(tmp_path / "out" / "segger_segmentation.parquet"),
+        pd.read_parquet(work / "out" / "segger_segmentation.parquet"))
 
 
 def test_preprocess_command_like_jax(tmp_path):

@@ -86,8 +86,9 @@ def test_make_synthetic_matches_jax(slide):
 @pytest.mark.parametrize("buffered", [False, True],
                          ids=["unbuffered", "buffered"])
 def test_points_in_polygons_matches_jax(slide, buffered):
-    """Equal (point, polygon) pair arrays in canonical order; the JAX
-    package may take its C++ grid join here, the port its KDTree path."""
+    """Equal (point, polygon) pair arrays in canonical order, both from
+    the packages' C++ grid joins (the port's KDTree path is held to its
+    join in ``test_torch_port_native.py``)."""
     j, _ = slide
     pts = j.transcripts[["x", "y"]].to_numpy()
     polys = [p for (_, b), p in j.polygons.items() if b == "cell"]
@@ -333,10 +334,11 @@ def test_common_neighbor_counts_matches_spgemm(rng):
     J = t_cl.knn_jaccard_graph(X, 8)
     A = (J > 0).astype(np.float64)
     coo = A.tocoo()
-    got = t_cl.common_neighbor_counts(A.indptr, A.indices, coo.row, coo.col)
+    got = t_cl.common_neighbor_counts_spgemm(A.indptr, A.indices, coo.row,
+                                             coo.col)
     truth = np.asarray((A @ A).multiply(A).todense())[coo.row, coo.col]
     np.testing.assert_array_equal(got, truth)
-    assert t_cl.common_neighbor_counts(
+    assert t_cl.common_neighbor_counts_spgemm(
         np.zeros(1, np.int64), np.zeros(0, np.int64),
         np.zeros(0, np.int64), np.zeros(0, np.int64)).size == 0
 
@@ -356,7 +358,7 @@ def test_common_neighbor_counts_blocks_and_hub(block_nnz, monkeypatch):
     coo = A.tocoo()
     p = rng.permutation(coo.nnz)
     monkeypatch.setattr(t_cl, "BLOCK_NNZ", block_nnz)
-    got = t_cl.common_neighbor_counts(A.indptr, A.indices, coo.row[p],
+    got = t_cl.common_neighbor_counts_spgemm(A.indptr, A.indices, coo.row[p],
                                       coo.col[p])
     want = j_native.common_neighbor_counts(A.indptr, A.indices, coo.row[p],
                                            coo.col[p])

@@ -2,8 +2,10 @@
 import neither JAX nor the JAX package, nothing of scikit-learn or h5py
 at module level (the GPU machine has neither), and a small fit and
 prediction, the segmentation pipeline from a synthetic slide to its
-table, and the command line from a raw Xenium directory to the exported
-boundaries, run with all of them blocked."""
+table, the command line from a raw Xenium directory to the exported
+boundaries, and the out-of-core path (columnar transcripts, the
+memmapped graph plane, ``segment --low-memory --graph-cache``, the
+native spatial core) run with all of them blocked."""
 import ast
 import subprocess
 import sys
@@ -109,6 +111,30 @@ _SCRIPT = textwrap.dedent("""
                                "fit", "predict", "write",
                                "export-boundaries"}}
     assert "cv2" not in sys.modules     # a Xenium run never imports it
+
+    # the out-of-core path (chip_smoke.py's phase 9, small, on the CPU):
+    # the slide as spooled columnar chunks -> the graph equals the
+    # pipeline's, the memmapped plane -> fit, predict_streaming,
+    # write_dense; the MERSCOPE directory through segment --low-memory
+    # --graph-cache (prepare in a child process, then the cached run);
+    # the native core (built by g++ at first use) against the KDTree
+    # and SpGEMM plain versions
+    with tempfile.TemporaryDirectory() as work:
+        o = chip_smoke.drive_outofcore(
+            work, device="cpu", n_cells=60, n_genes=20, epochs=1,
+            pipeline_kw=dict(cells_embedding_size=8, genes_min_counts=5,
+                             cells_min_counts=3, tiling_nodes_per_tile=600,
+                             prediction_graph_buffer_ratio=0.2),
+            train_kw=dict(hidden_channels=16, out_channels=16,
+                          n_mid_layers=0), graph=r["graph"],
+            table=r["table"])
+    assert o["agreement"] == 1.0 and o["accuracy"] > 0.6
+    assert set(o["cli"]["walls"]) == {{"load-graph", "fit", "predict",
+                                      "write"}}
+    assert {{"graph.tx_knn", "graph.prediction"}} <= set(o["substages"])
+    assert set(o["branches"]["walls"]) == {{"native", "kdtree"}}
+    from segger_tpu_torch import native
+    assert native.library_path().exists()
     assert not any(m.split(".")[0] in {blocked!r}
                    for m in sys.modules if sys.modules[m] is not None)
     print("OK")
@@ -153,3 +179,15 @@ def test_no_module_level_sklearn_or_h5py(path):
     bad = [m for m in _imported_modules(path, top_level_only=True)
            if m.split(".")[0] in NOT_ON_CARD]
     assert not bad, f"{path} imports {bad} at module level"
+
+
+def test_port_builds_its_own_native_source():
+    """The native core the port builds is its own copy of the C++ source,
+    never the JAX package's ``csrc/spatial.cpp``, and the new host modules
+    are among the files checked above."""
+    from segger_tpu_torch import native
+
+    assert native.SOURCE == ROOT / "segger_tpu_torch" / "csrc" / "spatial.cpp"
+    assert native.library_path().parent == ROOT / "build" / "native"
+    for rel in ("native.py", "utils_profiling.py", "data/columnar.py"):
+        assert ROOT / "segger_tpu_torch" / rel in PORT_FILES

@@ -275,6 +275,13 @@ def test_run_without_device_needs_cuda(slides, tmp_path):
 
 
 def test_pipeline_takes_a_dataframe(slides):
+    """A standardized DataFrame or a columnar table (held to the DataFrame
+    path in ``test_torch_port_columnar.py``); anything else is refused up
+    front, naming both."""
+    from segger_tpu_torch.data.columnar import ColumnarTranscripts
+
     _, t = slides
-    with pytest.raises(TypeError, match="DataFrame"):
+    with pytest.raises(TypeError, match="DataFrame or a ColumnarTranscripts"):
         ISTPipeline(t.transcripts.to_dict("list"), t.boundaries, t.polygons)
+    cols = ColumnarTranscripts.from_dataframe(t.transcripts)
+    assert ISTPipeline(cols, t.boundaries, t.polygons).transcripts is cols
