@@ -6,6 +6,9 @@
                                      # one predict pass and one training
                                      # step, by kernel, into
                                      # chiprun_out/{predict,train}_profile.txt
+    python3 chip_smoke.py --whole-slide  # the build, phase 7's pipeline
+                                     # and phase 10 only (run it on a
+                                     # host of several cards)
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -72,7 +75,8 @@ Phases (any failure exits non-zero; nothing is caught):
    the GPU machine has no h5py;
 8. the command line users run: phase 7's slide written as a raw Xenium
    v2 directory (``write_xenium_like``), then ``segger-tpu-torch segment
-   --no-anndata --max-epochs 2 --seed 0`` on it in this process, and
+   --no-anndata --max-epochs 2 --seed 0 --devices 1`` on it in this
+   process, and
    ``export transcripts boundaries`` on its output, with each stage's
    wall (write-vendor, read, features + graph, fit, predict, write,
    export-boundaries): the graph the command builds from the vendor
@@ -100,6 +104,27 @@ Phases (any failure exits non-zero; nothing is caught):
    and the common-neighbor counts of its cells' kNN graph by the native
    merge and the SpGEMM (equal, both walls).  Each stage's wall,
    ``peak_rss_gb``, the sampled RSS and anonymous-RSS peaks and
+   ``torch.cuda.max_memory_allocated`` are printed beside the card's
+   name and power limit;
+10. the whole-slide halo-exchange path (``drive_whole_slide``) on phase
+   7's graph with phase 7's trained weights, every shard on ``cuda:0``:
+   ``predict_whole_slide`` at 1 strip, 4 strips and a 2x2 grid, in bf16
+   (4 strips and the grid agree with 1 strip on at least
+   ``MIN_AGREEMENT`` of the transcripts, the similarity within
+   ``SIM_ATOL``, accuracy above 0.6) and in float32 (cells equal wherever
+   the top-two candidate margin exceeds 1e-5, similarity within 1e-4);
+   the surrogate gradient of ``tests/test_halo_train.py`` at 4 strips
+   against 1 strip within 5e-5 of scale (f32); ``fit_whole_slide`` for 2
+   epochs at 1 and 4 strips from one init; with more than one card the
+   4-strip predict over ``min(4, count)`` cards bit-equal to one card
+   and its fit's losses within ``GRAPH_STEP_RTOL`` of one card's;
+   and ``segment --distributed-predict --distributed-train --devices 1``
+   on phase 7's slide as a Xenium directory (the table passes phase 7's
+   checks).  Every run's launches of K1, K2, K3 and K5 are held to 8 K1
+   and 1 K5 a shard a predict and 8 K2 and 8 K3 a shard a step; then
+   K1, K2, K3 and K5 against their plain versions on a shard's own
+   extended tables (the middle strip's, a grid shard's), K5 in float32
+   as this path scores.  Each wall (build, predict, fit epoch) and
    ``torch.cuda.max_memory_allocated`` are printed beside the card's
    name and power limit.
 
@@ -228,7 +253,7 @@ def device_ms(fn, reps: int, kernel: str | None = None) -> float:
         fn()
     torch.cuda.synchronize()
     counts, partial = [], (0, 0.0)
-    for _ in range(3):     # a trace now and then comes back without kernels
+    for _ in range(5):     # a trace now and then comes back without kernels
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -252,7 +277,7 @@ def device_ms(fn, reps: int, kernel: str | None = None) -> float:
     if partial[0]:
         return partial[1] / partial[0]
     raise AssertionError(f"device_ms: {counts} launches of "
-                         f"{kernel or 'any kernel'} traced in three tries, "
+                         f"{kernel or 'any kernel'} traced in five tries, "
                          f"expected {'' if kernel else 'a multiple of '}"
                          f"{reps}")
 
@@ -1022,6 +1047,8 @@ def drive_pipeline(out_dir, device=None, n_cells=PIPE_CELLS,
                  == b["segger_gene"].astype(object).to_numpy()).all()):
         raise AssertionError("pipeline: write_dense differs from write")
 
+    # the trained weights, for phase 10, before the initial ones
+    state = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
     # the same prediction with the initial weights
     tr.init()
     p0 = tr.predict(ptiles)
@@ -1041,6 +1068,7 @@ def drive_pipeline(out_dir, device=None, n_cells=PIPE_CELLS,
             "history": tr.history, "accuracy": table["accuracy"],
             "accuracy_multi": table["accuracy_multi"],
             "accuracy_multi_init": acc0_multi, "graph": g,
+            "state": state, "truth": truth,
             # the first predict and training tiles, for the kernel checks
             "cfg": tr.cfg, "tiles": (first_tile(tr, run["pplans"][0]),
                                      first_tile(tr, run["fit_plans"][0]))}
@@ -1100,8 +1128,11 @@ def drive_cli(work_dir, device=None, n_cells=PIPE_CELLS, n_genes=PIPE_GENES,
     walls = {"write-vendor": time.perf_counter() - t0}
     out = work / "out"
     reset_counts()
+    # --devices 1: the tiled path runs on one card, also on a host of
+    # several (where the default, every card, is refused)
     code = cli(["segment", "-i", str(raw), "-o", str(out), "--no-anndata",
                 "--max-epochs", str(epochs), "--seed", str(SEED),
+                "--devices", "1",
                 *(["--device", device] if device else []),
                 *cli_flags(pipeline_kw), *cli_flags(train_kw)])
     if device is None or torch.device(device).type == "cuda":
@@ -1495,7 +1526,7 @@ def drive_outofcore(work_dir, device=None, n_cells=PIPE_CELLS,
     cache = work / "cache"
     flags = [*cli_flags(pipeline_kw), *cli_flags(train_kw),
              "--max-epochs", str(epochs), "--seed", str(SEED),
-             "--low-memory", "--graph-cache", str(cache)]
+             "--devices", "1", "--low-memory", "--graph-cache", str(cache)]
     t0 = time.perf_counter()
     res = subprocess.run(
         [sys.executable, "-c", _PREPARE.format(root=str(ROOT), argv=[
@@ -1562,6 +1593,424 @@ def drive_outofcore(work_dir, device=None, n_cells=PIPE_CELLS,
             "branches": branches, "neighbor_counts": counts_cmp}
 
 
+# phase 10: the whole-slide halo-exchange path
+WS_LAYOUTS = (("1 strip", 1, None), ("4 strips", 4, None),
+              ("2x2 grid", 4, (2, 2)))
+WS_F32_SIM_ATOL = 1e-4            # f32 layouts against one strip
+WS_MARGIN = 1e-5                  # f32: cells equal where the top-two
+                                  # candidate margin exceeds this
+WS_GRAD_ATOL = 5e-5               # surrogate gradient, of its scale
+
+
+def ws_mesh(n, grid, device):
+    """``n`` strips, or a ``grid``, with every shard on ``device``."""
+    from segger_tpu_torch.parallel.mesh import make_grid_mesh, make_mesh
+
+    if grid is not None:
+        return make_grid_mesh(*grid, [device] * n)
+    return make_mesh(n, [device] * n)
+
+
+def ws_trainer(graph, state, device, dtype, epochs, train_kw=None):
+    """A trainer at ``TrainConfig(**train_kw)`` width in ``dtype`` holding
+    ``state`` (fresh seeded weights when None)."""
+    from segger_tpu_torch.train.trainer import SeggerTrainer, TrainConfig
+
+    tr = SeggerTrainer(graph, TrainConfig(
+        compute_dtype=dtype, max_epochs=epochs, **(train_kw or {})),
+        device=device)
+    tr.init()
+    if state is not None:
+        tr.model.load_state_dict(state)
+    return tr
+
+
+def ws_sorted(pred):
+    """Prediction arrays in row order."""
+    o = pred["row_index"].argsort()
+    return {k: v[o] for k, v in pred.items()}
+
+
+def ws_margin(tr, graph, device):
+    """Each transcript's gap between its best and second-best candidate
+    cosine on one strip (inf with fewer than two), in row order."""
+    import numpy as np
+    import torch
+
+    from segger_tpu_torch.ops.gather_agg import csr_gather
+    from segger_tpu_torch.parallel import halo
+    from segger_tpu_torch.parallel.mesh import put_sharded
+
+    mesh = ws_mesh(1, None, device)
+    stacked, spec, _ = halo.build_sharded_graph(graph, 1)
+    (t,), (h,) = put_sharded(stacked, mesh), put_sharded(spec, mesh)
+    with torch.no_grad():
+        (emb,) = halo.sharded_forward(tr.model, mesh, [t],
+                                      halo.strip_exchanges([h])[0])
+        cos = torch.einsum("nf,nkf->nk", emb["tx"].float(),
+                           csr_gather(emb["bd"].float(), t.cand))
+        cos = torch.where(t.cand.mask, cos, -np.inf)
+        cos = torch.cat([cos, torch.full_like(cos[:, :1], -np.inf)], 1)
+        top = cos.topk(2, dim=1).values
+    gap = (top[:, 0] - top[:, 1]).nan_to_num(np.inf).cpu().numpy()
+    valid = t.tx_valid.cpu().numpy()
+    rows = t.tx_index.cpu().numpy()[valid]
+    return gap[valid][rows.argsort()]
+
+
+def ws_surrogate_grads(tr, graph, n, device):
+    """``tests/test_halo_train.py``'s surrogate loss (a node term over
+    every transcript, a link term over every supervision edge through a
+    final tx exchange) over ``n`` strips: its flat parameter gradient and
+    the seconds of its forward and backward (the build not counted)."""
+    import torch
+
+    from segger_tpu_torch.parallel import halo
+    from segger_tpu_torch.parallel.mesh import put_sharded
+
+    mesh = ws_mesh(n, None, device)
+    stacked, spec, _ = halo.build_sharded_graph(graph, n, for_training=True)
+    shards, halos = put_sharded(stacked, mesh), put_sharded(spec, mesh)
+    ex_tx = halo.strip_exchanges(halos)[0]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.model.zero_grad(set_to_none=True)
+    emb = halo.sharded_forward(tr.model, mesh, shards, ex_tx)
+    tx_ext = ex_tx([e["tx"] for e in emb])
+    c_node = sum(int(t.tx_valid.sum()) for t in shards)
+    c_link = sum(int(t.sg_mask.sum()) for t in shards)
+    loss = 0.0
+    for t, e, ext in zip(shards, emb, tx_ext):
+        node = torch.where(t.tx_valid, (e["tx"] ** 2).sum(-1), 0.0).sum()
+        link = (torch.cat(ext)[t.sg_src.long()]
+                * e["bd"][t.sg_dst.long()]).sum(-1)
+        loss = loss + node / c_node + torch.where(
+            t.sg_mask, link, 0.0).sum() / c_link
+    loss.backward()
+    flat = torch.cat([p.grad.reshape(-1) for p in tr.model.parameters()])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return flat, time.perf_counter() - t0
+
+
+def ws_counts(n_layers, shards, predicts=0, steps=0) -> dict:
+    """The launches of ``predicts`` whole-slide predictions and ``steps``
+    train steps over ``shards`` shards: K1 once per conv (tt, tb) a layer
+    and shard and K5 once a shard in a predict, K2 and K3 once per conv a
+    layer and shard in a step."""
+    convs = 2 * n_layers * shards
+    return {"fwd": {"nokeep": convs * predicts, "prng": convs * steps,
+                    "keep": 0},
+            "bwd": {"nokeep": 0, "prng": convs * steps, "keep": 0},
+            "score": shards * predicts, "attn": 0, "banded": 0}
+
+
+def shard_tables(stacked, spec, d) -> dict:
+    """Shard ``d``'s own tables with the sizes of the spaces they index:
+    tt and tb over its extended tx rows ``[local | halo pieces]``, the
+    candidates over its extended bd rows."""
+    halo_rows = sum(getattr(spec, f.name).shape[1]
+                    for f in dataclasses.fields(spec)
+                    if f.name.startswith("tx_send")
+                    and not f.name.endswith("mask"))
+    return {"tt": (stacked.tt.idx[d], stacked.tt.mask[d]),
+            "tb": (stacked.tb.idx[d], stacked.tb.mask[d]),
+            "cand": (stacked.cand.idx[d], stacked.cand.mask[d]),
+            "n_tx_ext": stacked.tx_gene.shape[1] + halo_rows,
+            "n_bd_ext": spec.bd_index_ext.shape[1]}
+
+
+def drive_whole_slide(work_dir, graph, state, truth, table, device=None,
+                      epochs=PIPE_EPOCHS, n_cells=PIPE_CELLS,
+                      n_genes=PIPE_GENES, tx_per_cell=PIPE_TX_PER_CELL,
+                      pipeline_kw=None, train_kw=None) -> dict:
+    """Phase 10: the whole-slide halo-exchange path on phase 7's graph
+    with phase 7's trained weights ``state``, every shard on one device
+    (``cuda:0`` by default).
+
+    (a) ``predict_whole_slide`` at 1 strip, 4 strips and a 2x2 grid, in
+    bf16 and in float32, the kernel counts set to 0 just before each and
+    read just after: each covers every transcript once; in bf16 4 strips
+    and the grid agree with 1 strip on at least ``MIN_AGREEMENT`` of the
+    transcripts with the similarity within ``SIM_ATOL``, and each is more
+    accurate than ``MIN_ACCURACY`` against the true cells; in float32 the
+    cells are equal wherever the top-two margin exceeds ``WS_MARGIN`` and
+    the similarity within ``WS_F32_SIM_ATOL``;
+    (b) the surrogate gradient at 4 strips against 1 strip, float32,
+    within ``WS_GRAD_ATOL`` of its scale;
+    (c) ``fit_whole_slide`` for ``epochs`` at 1 and at 4 strips from one
+    seeded init: finite losses;
+    (d) with more than one card visible, the 4-strip predict over
+    ``min(4, count)`` cards bit-equal to the one-card result, and the
+    4-strip fit's losses within ``GRAPH_STEP_RTOL`` of one card's;
+    (e) phase 7's slide as a raw Xenium directory through ``segment
+    --distributed-predict --distributed-train --devices 1``: the table
+    passes ``check_table``.
+    On CUDA every run's launches must equal ``ws_counts``.  Returns the
+    walls,
+    counts, agreements and the shards' own tables for the kernel
+    checks."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from segger_tpu_torch.cli.main import main as cli
+    from segger_tpu_torch.cli.segment import run_segment
+    from segger_tpu_torch.data.synthetic import write_xenium_like
+    from segger_tpu_torch.parallel import grid as pgrid
+    from segger_tpu_torch.parallel import halo
+
+    cuda = device is None or torch.device(device).type == "cuda"
+    dev = torch.device("cuda", 0) if cuda else torch.device(device)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    n_layers = 4 if train_kw is None else 2 + train_kw.get(
+        "n_mid_layers", 2)
+    walls, runs, checks = {}, {}, {}
+
+    def counted(key, fn, want):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        walls[key] = time.perf_counter() - t0
+        got = read_counts()
+        # the plain versions on the CPU launch nothing
+        if cuda and got != want:
+            raise AssertionError(f"whole-slide {key}: launches {got}, "
+                                 f"expected {want}")
+        runs[key] = got
+        return out
+
+    # (a) predict at three layouts, two types
+    tables = {}
+    for name, n, grid in WS_LAYOUTS:
+        t0 = time.perf_counter()
+        if grid is None:
+            stacked, spec, dropped = halo.build_sharded_graph(graph, n)
+        else:
+            stacked, spec, dropped = pgrid.build_grid_sharded_graph(
+                graph, *grid)
+        walls[f"build {name}"] = time.perf_counter() - t0
+        if dropped.any():
+            raise AssertionError(f"{name}: dropped edges {dropped}")
+        if n > 1:
+            tables[name] = shard_tables(stacked, spec, 1)
+    preds = {}
+    for dtype in ("bfloat16", "float32"):
+        tr = ws_trainer(graph, state, dev, dtype, epochs, train_kw)
+        for name, n, grid in WS_LAYOUTS:
+            mesh = ws_mesh(n, grid, dev)
+            p = counted(f"predict {name} {dtype}",
+                        lambda: tr.predict_whole_slide(mesh, grid=grid),
+                        ws_counts(n_layers, n, predicts=1))
+            p = ws_sorted(p)
+            if not np.array_equal(p["row_index"], np.sort(graph.tx_index)):
+                raise AssertionError(f"whole-slide {name} {dtype}: not "
+                                     "one row per transcript")
+            preds[(name, dtype)] = p
+        if dtype == "float32":
+            margin = ws_margin(tr, graph, dev)
+            f32_tr = tr
+        else:
+            bf16_tr = tr
+    ref16, ref32 = preds[("1 strip", "bfloat16")], preds[("1 strip",
+                                                          "float32")]
+    clear = margin > WS_MARGIN
+    for name, _, _ in WS_LAYOUTS:
+        p16, p32 = preds[(name, "bfloat16")], preds[(name, "float32")]
+        enc = p16["cell_encoding"].astype(np.int64)
+        ids = np.where(enc >= 0, graph.bd_cell_id[np.maximum(enc, 0)], None)
+        acc = _accuracy(p16["row_index"].astype(np.int64), ids, truth)
+        agree = float((enc == ref16["cell_encoding"]).mean())
+        sim16 = float(np.abs(p16["similarity"] - ref16["similarity"]).max())
+        sim32 = float(np.abs(p32["similarity"] - ref32["similarity"]).max())
+        eq32 = bool((p32["cell_encoding"][clear]
+                     == ref32["cell_encoding"][clear]).all())
+        t = table.set_index("row_index")["segger_cell_id"].astype(object)
+        t7 = t.reindex(p16["row_index"]).to_numpy()
+        has = pd.notna(t7)
+        tiled = float((ids[has] == t7[has]).mean())
+        checks[name] = {"accuracy": acc, "agreement_bf16": agree,
+                        "max_sim_diff_bf16": sim16,
+                        "max_sim_diff_f32": sim32, "cells_equal_f32": eq32,
+                        "clear_share_f32": float(clear.mean()),
+                        "agreement_with_tiled": tiled}
+        if not acc > MIN_ACCURACY:
+            raise AssertionError(f"whole-slide {name}: accuracy {acc}")
+        if not (agree >= MIN_AGREEMENT and sim16 <= SIM_ATOL):
+            raise AssertionError(f"whole-slide {name} bf16 against 1 "
+                                 f"strip: agreement {agree}, sim {sim16}")
+        if not (eq32 and sim32 <= WS_F32_SIM_ATOL):
+            raise AssertionError(f"whole-slide {name} f32 against 1 strip: "
+                                 f"cells equal {eq32}, sim {sim32}")
+
+    # (b) the surrogate gradient through the exchange, f32
+    grads = {}
+    for n in (1, 4, 1):
+        t0 = time.perf_counter()
+        grads[n] = ws_surrogate_grads(f32_tr, graph, n, dev)
+        sync()
+        # the second 1-strip run is the warm one
+        walls[f"surrogate gradient {n} strip{'s' * (n > 1)}"] = \
+            time.perf_counter() - t0
+    (g1, step1), (g4, step4) = grads[1], grads[4]
+    walls["surrogate forward + backward 1 strip (warm)"] = step1
+    walls["surrogate forward + backward 4 strips"] = step4
+    scale = float(g1.abs().max()) + 1e-12
+    grad_err = float((g4 - g1).abs().max()) / scale
+    if not grad_err <= WS_GRAD_ATOL:
+        raise AssertionError(f"surrogate gradient 4 strips: {grad_err} of "
+                             f"scale, limit {WS_GRAD_ATOL}")
+    del f32_tr
+
+    # (c) whole-slide training from one seeded init, 1 and 4 strips
+    t0 = time.perf_counter()
+    stacked, spec, _ = halo.build_sharded_graph(graph, 4, for_training=True)
+    walls["build 4 strips for training"] = time.perf_counter() - t0
+    tables["4 strips training"] = shard_tables(stacked, spec, 1)
+    histories, epoch_walls = {}, {}
+    for name, n, _ in WS_LAYOUTS[:2]:
+        tr = ws_trainer(graph, None, dev, "bfloat16", epochs, train_kw)
+        mesh = ws_mesh(n, None, dev)
+        hist = counted(f"fit {name}",
+                       lambda: tr.fit_whole_slide(mesh, max_epochs=epochs),
+                       ws_counts(n_layers, n, steps=epochs))
+        losses = [h["train:loss"] for h in hist]
+        if not (len(hist) == epochs and np.isfinite(losses).all()):
+            raise AssertionError(f"fit_whole_slide {name}: {hist}")
+        histories[name] = hist
+        epoch_walls[name] = [sec for _, _, sec in tr.step_log]
+        del tr
+
+    # (d) several cards: the 4-strip predict and fit with shard d on card
+    # d mod k, against one card
+    multi = None
+    n_cards = torch.cuda.device_count() if cuda else 0
+    if n_cards > 1:
+        k = min(4, n_cards)
+        from segger_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(devices=[torch.device("cuda", d % k)
+                                  for d in range(4)])
+        p = ws_sorted(bf16_tr.predict_whole_slide(mesh))
+        ref = preds[("4 strips", "bfloat16")]
+        tr = ws_trainer(graph, None, dev, "bfloat16", epochs, train_kw)
+        t0 = time.perf_counter()
+        hist = tr.fit_whole_slide(mesh, max_epochs=epochs)
+        walls[f"fit 4 strips over {k} cards"] = time.perf_counter() - t0
+        want = [h["train:loss"] for h in histories["4 strips"]]
+        got = [h["train:loss"] for h in hist]
+        multi = {"cards": k, "predict_bit_equal": all(
+            np.array_equal(p[key], ref[key]) for key in ref),
+            "fit_losses": got, "fit_losses_one_card": want}
+        if not multi["predict_bit_equal"]:
+            raise AssertionError(f"4 strips over {k} cards: the predict "
+                                 "differs from one card's")
+        # the gradient sums of several cards run in another order
+        if not np.allclose(got, want, rtol=GRAPH_STEP_RTOL, atol=0):
+            raise AssertionError(f"4 strips over {k} cards: fit losses "
+                                 f"{got}, one card {want}")
+        del tr
+    del bf16_tr
+
+    # (e) the command line, on phase 7's slide as a Xenium directory
+    work = Path(work_dir)
+    synth = pipeline_slide(n_cells, n_genes, tx_per_cell)
+    raw = write_xenium_like(work / "xenium", synth)
+    out = work / "out"
+    reset_counts()
+    code = cli(["segment", "-i", str(raw), "-o", str(out), "--no-anndata",
+                "--distributed-predict", "--distributed-train",
+                "--devices", "1", "--max-epochs", str(epochs), "--seed",
+                str(SEED), *(["--device", device] if device else []),
+                *cli_flags(pipeline_kw), *cli_flags(train_kw)])
+    sync()
+    cli_counts = read_counts()
+    if code != 0:
+        raise AssertionError(f"segment --distributed-* exited {code}")
+    last = run_segment.last_run
+    run_segment.last_run = None
+    g = last["pipeline"].graph
+    want = ws_counts(n_layers, 1, predicts=1, steps=epochs)
+    if cuda and cli_counts != want:
+        raise AssertionError(f"segment --distributed-*: launches "
+                             f"{cli_counts}, expected {want}")
+    seg = pd.read_parquet(out / "segger_segmentation.parquet")
+    cli_table = check_table(seg, g, np.asarray(synth.truth_cell),
+                            "whole-slide cli")
+    runs["cli"] = cli_counts
+    peak = ((torch.cuda.max_memory_allocated() - base) / 2**20 if cuda
+            else None)
+    return {"walls": walls, "counts": runs, "checks": checks,
+            "grad_err": grad_err, "histories": histories,
+            "epoch_walls": epoch_walls, "multi": multi,
+            "n_cards": n_cards, "tables": tables,
+            "cli": {"walls": last["walls"], "accuracy":
+                    cli_table["accuracy"],
+                    "history": last["trainer"].history},
+            "peak_mib": peak, "n_layers": n_layers}
+
+
+def print_whole_slide(ws, n_tx, n_bd, card) -> None:
+    """Phase 10's walls, checks, fits and launches."""
+    print(f"whole-slide: phase 7's graph ({n_tx} tx, {n_bd} "
+          f"cells) with its trained weights, every shard on cuda:0, "
+          f"TrainConfig() width; walls (s) " + json.dumps(
+              {k: round(v, 4) for k, v in ws["walls"].items()})
+          + f"; max_memory_allocated {ws['peak_mib']:.1f} MiB above the "
+          f"earlier phases' tensors | {card}")
+    for name, c in ws["checks"].items():
+        print(f"whole-slide {name}: " + json.dumps(c))
+    print(f"whole-slide surrogate gradient, 4 strips against 1 strip "
+          f"(f32): {ws['grad_err']:.3e} of scale (limit {WS_GRAD_ATOL})")
+    for name, hist in ws["histories"].items():
+        print(f"whole-slide fit {name}: epoch walls (s) "
+              f"{[round(w, 4) for w in ws['epoch_walls'][name]]}; "
+              + json.dumps(hist))
+    if ws["multi"] is None:
+        print(f"whole-slide on several cards: not run, "
+              f"{ws['n_cards']} card visible")
+    else:
+        print(f"whole-slide 4 strips over {ws['multi']['cards']} cards: "
+              f"predict bit-equal to one card; " + json.dumps(ws["multi"]))
+    print("whole-slide cli: segment --distributed-predict "
+          "--distributed-train --devices 1 on phase 7's slide as a Xenium "
+          "directory, walls (s) " + json.dumps(
+              {k: round(v, 3) for k, v in ws["cli"]["walls"].items()})
+          + f", accuracy {ws['cli']['accuracy']:.4f}")
+    print(f"whole-slide launches {json.dumps(ws['counts'])}")
+
+
+def whole_slide_only(card) -> int:
+    """``--whole-slide``: phase 7's pipeline run for its graph and
+    weights, then phase 10, with no timing of kernels; on a host of
+    several cards this holds the 4-strip runs over the cards against one
+    card at a quarter of the full script's chip time."""
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        pipe = drive_pipeline(out_dir)
+    with tempfile.TemporaryDirectory() as work_dir:
+        ws = drive_whole_slide(work_dir, pipe["graph"], pipe["state"],
+                               pipe["truth"], pipe["table"])
+    print_whole_slide(ws, pipe["n_tx"], pipe["n_bd"], card)
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main(argv) -> int:
     import torch
 
@@ -1605,6 +2054,8 @@ def main(argv) -> int:
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    if "--whole-slide" in argv:
+        return whole_slide_only(card)
 
     # -- host planning of the slide (gives the widths of the real tiles)
     t0 = time.perf_counter()
@@ -2072,10 +2523,9 @@ def main(argv) -> int:
     # columnar transcripts, the memmapped graph plane, fit and
     # predict_streaming on the card, the --low-memory --graph-cache
     # command line, and the native spatial core against its plain versions
+    table7 = pipe.pop("table")
     with tempfile.TemporaryDirectory() as work_dir:
-        ooc = drive_outofcore(work_dir, graph=pipe["graph"],
-                              table=pipe.pop("table"))
-    del pipe["graph"]
+        ooc = drive_outofcore(work_dir, graph=pipe["graph"], table=table7)
     ooc_counts, ooc_cli = ooc["counts"], ooc["cli"]
     print(f"out-of-core: phase 7's slide as ColumnarTranscripts in "
           f"{COLUMNAR_CHUNKS} spooled chunks -> {ooc['n_tx']} tx, "
@@ -2144,6 +2594,53 @@ def main(argv) -> int:
     for kernel, where, r in checks[n_checked:]:
         print(f"{kernel} [{where}] " + json.dumps(r))
     del ptile, ftile
+
+    # -- phase 10: the whole-slide halo-exchange path on phase 7's graph
+    # with its trained weights: predict at 1 strip, 4 strips and a 2x2
+    # grid, the surrogate gradient, fit_whole_slide, several cards when
+    # there are, and segment --distributed-predict --distributed-train
+    with tempfile.TemporaryDirectory() as work_dir:
+        ws = drive_whole_slide(work_dir, pipe.pop("graph"),
+                               pipe.pop("state"), pipe.pop("truth"), table7)
+    del table7
+    ws_counts_sum = {"fwd": dict.fromkeys(("nokeep", "prng", "keep"), 0),
+                     "bwd": dict.fromkeys(("nokeep", "prng", "keep"), 0),
+                     "score": 0}
+    for c in ws["counts"].values():
+        for mode in ("nokeep", "prng", "keep"):
+            ws_counts_sum["fwd"][mode] += c["fwd"][mode]
+            ws_counts_sum["bwd"][mode] += c["bwd"][mode]
+        ws_counts_sum["score"] += c["score"]
+    print_whole_slide(ws, pipe['n_tx'], pipe['n_bd'], card)
+    # the kernels against their plain versions on a shard's own extended
+    # tables: the middle strip's of the predict and the training builds,
+    # and a grid shard's, whose sources include the y relay
+    n_checked = len(checks)
+
+    def cu(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    for name in ("4 strips", "2x2 grid"):
+        t = ws["tables"][name]
+        for conv in ("tt", "tb"):
+            checks.append(("K1", f"whole-slide {name} shard {conv}",
+                           check_edge_stage(*map(cu, t[conv]), t["n_tx_ext"],
+                                            bf16, rng, p_heads, p_hc)))
+        checks.append(("K5", f"whole-slide {name} shard cand", check_score(
+            *map(cu, t["cand"]), t["n_bd_ext"], rng, f=pcfg.out_channels,
+            dtype=f32)))
+    t = ws["tables"]["4 strips training"]
+    for conv in ("tt", "tb"):
+        where = f"whole-slide train shard {conv}"
+        idx, mask = map(cu, t[conv])
+        checks.append(("K2", where, check_edge_stage(
+            idx, mask, t["n_tx_ext"], bf16, rng, p_heads, p_hc, "prng")))
+        for mode in ("prng", "nokeep"):
+            checks.append(("K3", where, check_edge_stage_bwd(
+                idx, mask, t["n_tx_ext"], bf16, rng, p_heads, p_hc, mode)))
+    for kernel, where, r in checks[n_checked:]:
+        print(f"{kernel} [{where}] " + json.dumps(r))
+    del ws["tables"]
 
     def summary(kernel, tile_prefix, modes=None):
         rs = [r for k, w, r in checks if k == kernel]
@@ -2267,6 +2764,20 @@ def main(argv) -> int:
         rec["launches"] += sum(extra.values())
         rec["launches_by_path"].update(extra)
         rec["out_of_core_tile"] = on_pipeline(kernel, prefix, modes)
+    # phase 10's launches and its shards' checks
+    for rec, n, kernel, prefix, modes in (
+            (kernels[0], ws_counts_sum["fwd"]["nokeep"], "K1",
+             "whole-slide 4 strips shard", None),
+            (kernels[1], ws_counts_sum["fwd"]["prng"], "K2",
+             "whole-slide train shard", None),
+            (kernels[2], ws_counts_sum["bwd"]["prng"]
+             + ws_counts_sum["bwd"]["nokeep"], "K3",
+             "whole-slide train shard", ("prng",)),
+            (kernels[4], ws_counts_sum["score"], "K5",
+             "whole-slide 4 strips shard", None)):
+        rec["launches"] += n
+        rec["launches_by_path"]["whole-slide"] = n
+        rec["whole_slide_shard"] = on_pipeline(kernel, prefix, modes)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,13 @@ max-merge; ``--graph-cache DIR`` loads the memmapped graph plane
 read and the build, and writes it after the build when it is not, in
 the JAX package's layout, so a cache crosses between the packages.
 With ``--prepare-only`` the command stops after the graph and touches
-no CUDA.  The options whose modules are not ported yet (sharding over
-several devices, the distributed and grid paths) stay in the parser and
-raise ``NotImplementedError`` before any file is read.
+no CUDA.  ``--distributed-train`` and ``--distributed-predict`` train and
+predict on the whole slide, sharded into strips over ``--devices N``
+cards (every visible one by default; with ``--device cpu``, N shards on
+the CPU) or into a ``--grid DXxDY`` of DX·DY devices, with a per-layer
+halo exchange (``parallel/``).  Tile data parallelism (``--devices``
+above 1 without them) is not ported and raises ``NotImplementedError``
+before any file is read.
 """
 from __future__ import annotations
 
@@ -150,30 +154,38 @@ def add_segment_parser(sub):
     return p
 
 
-# option -> the ROADMAP.md item that ports what it needs
-_UNPORTED = {
-    "distributed_predict": "Queue 1 item 7 (parallel/)",
-    "distributed_train": "Queue 1 item 7 (parallel/)",
-    "grid": "Queue 1 item 7 (parallel/)",
-}
-
-
 def add_device_argument(p):
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="Train and predict on the GPU (cuda), or run the "
                         "kernels' plain PyTorch versions on the CPU")
 
 
-def _refuse_unported(args) -> None:
-    """Raise for an option whose modules are not ported yet, naming the
-    ROADMAP.md item that ports them; nothing gives way to another
-    path."""
-    for name, item in _UNPORTED.items():
-        if getattr(args, name):
+def _mesh(args):
+    """The whole-slide mesh of ``--distributed-*``, or None without them
+    (the tiled paths run on one device).  Raises, before any file is
+    read, for ``--devices`` above 1 on the tiled paths (tile data
+    parallelism is not ported) and for more cards than are visible."""
+    import torch
+
+    from ..parallel.mesh import UNPORTED, make_grid_mesh, make_mesh
+    from ..train.trainer import resolve_device
+
+    device = resolve_device(args.device)
+    cuda = device.type == "cuda"
+    # --devices 0 means every device, as in the JAX package
+    n_dev = args.devices or (torch.cuda.device_count() if cuda else 1)
+    if not (args.distributed_train or args.distributed_predict):
+        if n_dev > 1:
             raise NotImplementedError(
-                f"--{name.replace('_', '-')} is not ported to "
-                f"segger_tpu_torch yet: ROADMAP.md {item}"
-            )
+                f"--devices {args.devices} ({n_dev} devices) without "
+                "--distributed-train / --distributed-predict: tile data "
+                "parallelism is not ported to segger_tpu_torch yet: "
+                f"{UNPORTED}; pass --devices 1")
+        return None
+    if args.grid:
+        dx, dy = (int(v) for v in args.grid.lower().split("x"))
+        return make_grid_mesh(dx, dy, None if cuda else [device] * (dx * dy))
+    return make_mesh(n_dev, None if cuda else [device] * n_dev)
 
 
 def run_segment(args) -> int:
@@ -183,23 +195,7 @@ def run_segment(args) -> int:
     save-graph, or load-graph in their place; fit, predict, write), its
     pipeline (None when the graph came from the cache), its graph and its
     trainer."""
-    _refuse_unported(args)
-    if not args.prepare_only:
-        import torch
-
-        from ..train.trainer import resolve_device
-
-        device = resolve_device(args.device)
-        # --devices 0 means every device, as in the JAX package
-        n_dev = args.devices or (
-            torch.cuda.device_count() if device.type == "cuda" else 1)
-        if n_dev > 1:
-            raise NotImplementedError(
-                f"--devices {args.devices} ({n_dev} devices): sharding "
-                "over several devices is not ported to segger_tpu_torch "
-                "yet: ROADMAP.md Queue 1 item 7 (parallel/); pass "
-                "--devices 1"
-            )
+    mesh = None if args.prepare_only else _mesh(args)
 
     import numpy as np
 
@@ -282,11 +278,15 @@ def run_segment(args) -> int:
         graph, TrainConfig(**train_kwargs), device=args.device
     )
     run_segment.last_run["trainer"] = trainer
+    grid = mesh.dims if mesh is not None and args.grid else None
     t0 = time.perf_counter()
-    fit_tiles = make_fit_tiles(
-        graph, tree, margin=cfg.tiling_margin_training,
-    )
-    trainer.fit(fit_tiles)
+    if args.distributed_train:
+        trainer.fit_whole_slide(mesh, grid=grid)
+    else:
+        fit_tiles = make_fit_tiles(
+            graph, tree, margin=cfg.tiling_margin_training,
+        )
+        trainer.fit(fit_tiles)
     walls["fit"] = time.perf_counter() - t0
 
     if args.debug:
@@ -309,10 +309,10 @@ def run_segment(args) -> int:
         out_dir, save_anndata=not args.no_anndata, debug=args.debug
     )
     t0 = time.perf_counter()
-    predict_tiles = make_predict_tiles(
-        graph, tree, margin=cfg.tiling_margin_prediction,
-    )
-    if args.low_memory:
+    if args.low_memory and not args.distributed_predict:
+        predict_tiles = make_predict_tiles(
+            graph, tree, margin=cfg.tiling_margin_prediction,
+        )
         # the streaming path: an online max-merge into dense row-addressed
         # arrays (O(n_rows) host memory), categorical cell ids throughout
         best_sim, best_enc = trainer.predict_streaming(predict_tiles)
@@ -325,7 +325,12 @@ def run_segment(args) -> int:
             cell_ids=graph.bd_cell_id, gene_names=gene_names,
         )
     else:
-        predictions = trainer.predict(predict_tiles)
+        if args.distributed_predict:
+            predictions = trainer.predict_whole_slide(mesh, grid=grid)
+        else:
+            predictions = trainer.predict(make_predict_tiles(
+                graph, tree, margin=cfg.tiling_margin_prediction,
+            ))
         walls["predict"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         writer.write(
@@ -334,8 +339,8 @@ def run_segment(args) -> int:
             gene_names=gene_names,
             # the h5ad export reads a DataFrame: --low-memory and
             # plane-cached runs skip it (the parquet is written either way)
-            transcripts=(pipeline.transcripts
-                         if pipeline is not None else None),
+            transcripts=(pipeline.transcripts if pipeline is not None
+                         and not args.low_memory else None),
         )
     walls["write"] = time.perf_counter() - t0
     # training history as CSV (CSVLogger analogue, cli/segment.py:394)

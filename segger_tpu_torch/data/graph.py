@@ -75,7 +75,7 @@ class TileGraph:
     tt_k_xlo: int = 0
 
     # True for halo-sharded tiles whose tables address an extended
-    # node space (not built by this package yet)
+    # node space (parallel/_build_common.py, for training)
     transposes_extended: bool = False
 
     # host-precomputed triplet-sampler block structure

@@ -25,6 +25,12 @@ unfused path everywhere so that each conv's attention is recorded.
 ``layer{i}_bd`` (post-conv, pre-GELU) and ``conv_{i}/{tt,tb,bt}/
 attention`` for each conv that ran unfused.
 
+The forward is three steps, :meth:`ISTEncoder.embed`,
+:meth:`ISTEncoder.layer` per layer and :meth:`ISTEncoder.head`, so that
+the whole-slide paths (``parallel/halo.py``) can run every shard's layer
+``i`` and exchange the halo rows before layer ``i + 1``; a layer then
+reads halo-extended sources (``x_tx_src``).
+
 Submodule and parameter names follow the flax parameter tree, so
 ``models/convert.py`` maps one onto the other by name.
 """
@@ -98,21 +104,47 @@ class HeteroGATLayer(nn.Module):
                 seeds: Optional[SeedSource] = None,
                 capture_attention: bool = False,
                 intermediates: Optional[Dict[str, torch.Tensor]] = None,
-                prefix: str = ""):
+                prefix: str = "", x_tx_src=None, x_bd_src=None):
         """``segments``: the tt and tb launches of the fused edge stage,
-        None where the tile has no transpose tables (unfused path)."""
+        None where the conv runs unfused.  ``x_tx_src`` / ``x_bd_src``
+        replace the source features (halo-extended copies, one tensor or
+        a tuple of pieces, in whole-slide execution); destinations stay
+        local."""
+        if x_tx_src is None:
+            x_tx_src = x_tx
+        if x_bd_src is None:
+            x_bd_src = x_bd
         tt_segs, tb_segs = segments
         kw = dict(deterministic=deterministic, seeds=seeds,
                   capture_attention=capture_attention,
                   intermediates=intermediates)
-        out_tx = self.tt(x_tx, x_tx, tile.tt, segments=tt_segs,
+        out_tx = self.tt(x_tx_src, x_tx, tile.tt, segments=tt_segs,
                          name=f"{prefix}tt/attention", **kw)
-        out_bd = self.tb(x_tx, x_bd, tile.tb, segments=tb_segs,
+        out_bd = self.tb(x_tx_src, x_bd, tile.tb, segments=tb_segs,
                          name=f"{prefix}tb/attention", **kw)
         if self.bt is not None and tile.bt is not None:
-            out_tx = out_tx + self.bt(x_bd, x_tx, tile.bt,
+            out_tx = out_tx + self.bt(x_bd_src, x_tx, tile.bt,
                                       name=f"{prefix}bt/attention", **kw)
         return out_tx, out_bd
+
+
+def conv_segments(tile: TileGraph):
+    """The fused launches of a tile's tt and tb convs (``tt_segments``;
+    tb as one segment), None for a conv whose transpose tables the tile
+    lacks: that conv runs unfused, as in the JAX package."""
+    return (tt_segments(tile), None if tile.tb_t is None else [
+        (0, tile.tb.idx.shape[0], tile.tb.idx, tile.tb.mask, tile.tb_t)])
+
+
+def whole_table_segments(tile: TileGraph):
+    """Each conv's table as one fused launch with its transpose table,
+    None where the tile has none: the whole-slide shards, which are not
+    degree-bucketed.  Without a transpose table the launch runs the
+    forward kernel alone, and a backward through it raises."""
+    return ([(0, tile.tt.idx.shape[0], tile.tt.idx, tile.tt.mask,
+              tile.tt_t)],
+            [(0, tile.tb.idx.shape[0], tile.tb.idx, tile.tb.mask,
+              tile.tb_t)])
 
 
 def tt_segments(tile: TileGraph) -> Optional[List[Segment]]:
@@ -227,10 +259,61 @@ class ISTEncoder(nn.Module):
                     count += n
         return count
 
+    def embed(self, tile: TileGraph, pos_prenormalized: bool = False,
+              intermediates: Optional[Dict[str, torch.Tensor]] = None):
+        """The first projection of both node types: gene embedding / bd
+        ``Dense``, the positional embedding (of coordinates already in
+        [0, 1] when ``pos_prenormalized``), then GELU."""
+        x_tx = self.gene_embedding(tile.tx_gene)
+        x_bd = dense(self.bd_linear, tile.bd_x)
+        if self.pos_emb is not None:
+            x_tx = torch.cat([x_tx, self.pos_emb(
+                tile.tx_pos, tile.tx_valid, pos_prenormalized)], dim=-1)
+            x_bd = torch.cat([x_bd, self.pos_emb(
+                tile.bd_pos, tile.bd_valid, pos_prenormalized)], dim=-1)
+        # exact (erf) GELU, the reference's
+        x_tx, x_bd = F.gelu(x_tx), F.gelu(x_bd)
+        if intermediates is not None:
+            intermediates["embed_tx"] = x_tx
+            intermediates["embed_bd"] = x_bd
+        return x_tx, x_bd
+
+    def layer(self, i: int, x_tx, x_bd, tile: TileGraph,
+              deterministic: bool = True,
+              seeds: Optional[SeedSource] = None,
+              x_tx_src=None, x_bd_src=None, segments=None,
+              capture_attention: bool = False,
+              intermediates: Optional[Dict[str, torch.Tensor]] = None):
+        """Hetero layer ``i``, then GELU.  ``segments`` defaults to the
+        tile's :func:`conv_segments` when the sources are local or the
+        tile's transpose tables address the extended source space
+        (``transposes_extended``), and to the unfused convs otherwise,
+        the JAX package's rule."""
+        if segments is None:
+            segments = (conv_segments(tile) if x_tx_src is None
+                        or tile.transposes_extended else (None, None))
+        x_tx, x_bd = getattr(self, f"conv_{i}")(
+            x_tx, x_bd, tile, segments, deterministic, seeds,
+            capture_attention, intermediates, prefix=f"conv_{i}/",
+            x_tx_src=x_tx_src, x_bd_src=x_bd_src)
+        if intermediates is not None:
+            intermediates[f"layer{i}_tx"] = x_tx
+            intermediates[f"layer{i}_bd"] = x_bd
+        return F.gelu(x_tx), F.gelu(x_bd)
+
+    def head(self, x_tx, x_bd) -> Dict[str, torch.Tensor]:
+        """The final per-type ``Dense``, then L2 normalization."""
+        x_tx = dense(self.lin_last_tx, x_tx)
+        x_bd = dense(self.lin_last_bd, x_bd)
+        if self.normalize_embeddings:
+            x_tx, x_bd = safe_normalize(x_tx), safe_normalize(x_bd)
+        return {"tx": x_tx, "bd": x_bd}
+
     def forward(self, tile: TileGraph, deterministic: bool = True,
                 seeds: Optional[SeedSource] = None,
                 capture_attention: bool = False,
                 intermediates: Optional[Dict[str, torch.Tensor]] = None,
+                pos_prenormalized: bool = False,
                 ) -> Dict[str, torch.Tensor]:
         """Embeddings of one tile (tensors on the model's device, no
         batch axis): ``{"tx": (Ntx, out), "bd": (Nbd, out)}``.
@@ -240,33 +323,16 @@ class ISTEncoder(nn.Module):
         order (layer by layer: the tt segments, then tb, then bt), drawn
         from torch's default generator when None.  ``capture_attention``
         runs every conv unfused; ``intermediates``, a dict, receives the
-        activations and attentions named in the module docstring."""
-        record = (intermediates.__setitem__ if intermediates is not None
-                  else lambda key, value: None)
-        x_tx = self.gene_embedding(tile.tx_gene)
-        x_bd = dense(self.bd_linear, tile.bd_x)
-        if self.pos_emb is not None:
-            x_tx = torch.cat(
-                [x_tx, self.pos_emb(tile.tx_pos, tile.tx_valid)], dim=-1)
-            x_bd = torch.cat(
-                [x_bd, self.pos_emb(tile.bd_pos, tile.bd_valid)], dim=-1)
-        # exact (erf) GELU, the reference's
-        x_tx, x_bd = F.gelu(x_tx), F.gelu(x_bd)
-        record("embed_tx", x_tx)
-        record("embed_bd", x_bd)
-
-        segments = (tt_segments(tile), None if tile.tb_t is None else [
-            (0, tile.tb.idx.shape[0], tile.tb.idx, tile.tb.mask, tile.tb_t)])
+        activations and attentions named in the module docstring.
+        ``pos_prenormalized``: the coordinates are in [0, 1] already.
+        :meth:`embed`, :meth:`layer` and :meth:`head` are its steps, which
+        the whole-slide paths (``parallel/``) run layer by layer across
+        shards."""
+        x_tx, x_bd = self.embed(tile, pos_prenormalized, intermediates)
+        segments = conv_segments(tile)
         for i in range(self.n_layers):
-            x_tx, x_bd = getattr(self, f"conv_{i}")(
-                x_tx, x_bd, tile, segments, deterministic, seeds,
-                capture_attention, intermediates, prefix=f"conv_{i}/")
-            record(f"layer{i}_tx", x_tx)
-            record(f"layer{i}_bd", x_bd)
-            x_tx, x_bd = F.gelu(x_tx), F.gelu(x_bd)
-
-        x_tx = dense(self.lin_last_tx, x_tx)
-        x_bd = dense(self.lin_last_bd, x_bd)
-        if self.normalize_embeddings:
-            x_tx, x_bd = safe_normalize(x_tx), safe_normalize(x_bd)
-        return {"tx": x_tx, "bd": x_bd}
+            x_tx, x_bd = self.layer(i, x_tx, x_bd, tile, deterministic,
+                                    seeds, segments=segments,
+                                    capture_attention=capture_attention,
+                                    intermediates=intermediates)
+        return self.head(x_tx, x_bd)

@@ -133,8 +133,17 @@ class GATv2Conv(nn.Module):
         and select the fused path, unless ``capture_attention``.  The
         unfused path stores its attention under ``intermediates[name]``
         when a dict is given.  With ``deterministic=False`` and a dropout
-        rate, each launch draws its seed words from ``seeds``."""
-        xl = dense(self.lin_l, x_src, self.dtype)
+        rate, each launch draws its seed words from ``seeds``.
+
+        ``x_src`` is one tensor, or a tuple of pieces of a halo-extended
+        source (``[local | from_left | from_right ...]``,
+        ``parallel/halo.py``): each piece is projected on its own and the
+        projections concatenated, as the JAX package does, so that the
+        local rows' projection does not wait for the exchange."""
+        if isinstance(x_src, (tuple, list)):
+            xl = torch.cat([dense(self.lin_l, p, self.dtype) for p in x_src])
+        else:
+            xl = dense(self.lin_l, x_src, self.dtype)
         xr = dense(self.lin_r, x_dst, self.dtype)
         att = self.att[0].to(xl.dtype)
         dropout_on = self.dropout > 0.0 and not deterministic

@@ -221,11 +221,15 @@ def draw_loss_randoms(tile, generator: torch.Generator) -> LossRandoms:
 
 def loss_stats(randoms: LossRandoms, emb, tile, tx_similarity,
                bd_similarity, *, tx_margin: float, sg_margin: float,
-               sg_loss_type: str, use_interior: bool = True):
+               sg_loss_type: str, use_interior: bool = True,
+               sg_tx: Optional[torch.Tensor] = None):
     """Stacked ``(sum, count)`` statistics of the three losses for one
     tile: ``[s_tx, c_tx, s_bd, c_bd, s_sg, c_sg]`` float32, summable
-    across tiles before forming the masked means.  ``use_interior``
-    restricts the tx/bd masks to tile interiors (margin tiles)."""
+    across tiles (or shards) before forming the masked means.
+    ``use_interior`` restricts the tx/bd masks to tile interiors (margin
+    tiles; whole-slide shards have none).  ``sg_tx`` replaces the tx
+    embeddings of the link loss: a shard's supervision sources address
+    its halo-extended tx rows."""
     tx_mask = tile.tx_valid & (tile.tx_cluster >= 0)
     bd_mask = tile.bd_valid & (tile.bd_cluster >= 0)
     if use_interior:
@@ -241,7 +245,8 @@ def loss_stats(randoms: LossRandoms, emb, tile, tx_similarity,
     s_bd, c_bd = metric_loss(randoms.bd, emb["bd"], tile.bd_cluster,
                              bd_mask, bd_similarity, sort_structure=bd_sort)
     s_sg, c_sg = segmentation_loss(
-        randoms.sg_shift, emb["tx"], emb["bd"], tile.sg_src, tile.sg_dst,
+        randoms.sg_shift, emb["tx"] if sg_tx is None else sg_tx,
+        emb["bd"], tile.sg_src, tile.sg_dst,
         tile.sg_mask, tile.bd_valid.sum(), loss_type=sg_loss_type,
         margin=sg_margin)
     return torch.stack([s_tx, c_tx.float(), s_bd, c_bd.float(), s_sg,

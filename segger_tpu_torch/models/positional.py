@@ -3,7 +3,10 @@
 Per-axis sinusoidal frequency embedding of tile-normalized coordinates
 through a Linear-SiLU-Linear MLP, concatenated across the two axes (the
 reference's ``Positional2dEmbedder``).  Coordinates are normalized per
-tile, by a masked min/max over its valid rows.
+tile, by a masked min/max over its valid rows, unless the caller passes
+them already in [0, 1] (``prenormalized``: the shards of a whole slide,
+normalized once in the slide's frame, since per-shard min/max would
+differ between shards).
 """
 from __future__ import annotations
 
@@ -52,11 +55,15 @@ class Positional2dEmbedder(nn.Module):
         self.Dense_0 = nn.Linear(frequency_embedding_size, dim)
         self.Dense_1 = nn.Linear(dim, dim)
 
-    def forward(self, pos: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-        vm = valid[:, None]
-        mins = torch.where(vm, pos, 1e30).amin(dim=0)
-        maxs = torch.where(vm, pos, -1e30).amax(dim=0)
-        p = (pos - mins) / (maxs - mins + 1e-8)
+    def forward(self, pos: torch.Tensor, valid: torch.Tensor,
+                prenormalized: bool = False) -> torch.Tensor:
+        if prenormalized:
+            p = pos
+        else:
+            vm = valid[:, None]
+            mins = torch.where(vm, pos, 1e30).amin(dim=0)
+            maxs = torch.where(vm, pos, -1e30).amax(dim=0)
+            p = (pos - mins) / (maxs - mins + 1e-8)
         freq = sinusoidal_embedding(p, self.frequency_embedding_size)
         emb = dense(self.Dense_1, F.silu(dense(self.Dense_0, freq)))
         return emb.reshape(emb.shape[0], -1)                # (N, 2*dim)

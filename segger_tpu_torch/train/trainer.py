@@ -19,6 +19,11 @@ the step's inputs; on the CPU the same step body runs eagerly.  There is
 no eager path on CUDA: a capture or replay that fails raises.
 ``train_step`` and ``eval_step`` stay eager, for comparisons.
 
+``SeggerTrainer.predict_whole_slide`` and ``fit_whole_slide`` run the
+slide itself, sharded into strips or a grid over a mesh of devices with a
+per-layer halo exchange (``parallel/``): exact receptive fields, no
+margins, one optimizer step per epoch.  They run eagerly.
+
 The trainer runs on CUDA unless the caller asks for the CPU
 (``device="cpu"``), and raises when no CUDA device is present rather
 than falling back.
@@ -124,8 +129,14 @@ class SeggerTrainer:
         graph: HostGraph,
         config: Optional[TrainConfig] = None,
         device=None,
+        mesh=None,
     ):
+        """``mesh`` (``parallel.mesh.Mesh``) is the whole-slide paths'
+        default mesh.  Tile data parallelism over it (``fit`` and
+        ``predict`` on a mesh of several shards, the JAX package's
+        ``SeggerTrainer(mesh=)``) is not ported and raises."""
         self.graph = graph
+        self.mesh = mesh
         self.cfg = TrainConfig() if config is None else config
         self.device = resolve_device(device)
         self.dtype = (
@@ -218,6 +229,16 @@ class SeggerTrainer:
         self.optimizer = torch.optim.Adam(
             params, lr=self.cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
             capturable=cuda, fused=cuda or None)
+
+    def _refuse_tile_dp(self) -> None:
+        if self.mesh is not None and self.mesh.size > 1:
+            from ..parallel.mesh import UNPORTED
+
+            raise NotImplementedError(
+                f"tile data parallelism over a mesh of {self.mesh.size} "
+                f"shards (fit / predict) is not ported to segger_tpu_torch "
+                f"yet: {UNPORTED}; predict_whole_slide and fit_whole_slide "
+                "run on the mesh")
 
     def _drop_steps(self) -> None:
         """Forget the compiled steps: they hold the addresses of the
@@ -570,6 +591,7 @@ class SeggerTrainer:
         ``on_epoch_end(epoch, trainer)`` runs after each record.  With
         ``checkpoint_dir``, ``latest.npz`` is resumed from at the epoch
         after its own and written every ``checkpoint_every`` epochs."""
+        self._refuse_tile_dp()
         cfg = self.cfg
         max_epochs = cfg.max_epochs if max_epochs is None else max_epochs
         train_tiles, val_tiles = self.split_tiles(fit_tiles)
@@ -619,6 +641,7 @@ class SeggerTrainer:
         tensor, and the host applies the mask."""
         if not self.initialized:
             raise RuntimeError("call init() or load_params() first")
+        self._refuse_tile_dp()
         self.release_tile_cache()
         plans = self._batch_plans(predict_tiles, use_xlo=True)
         with PrefetchIterator(
@@ -682,6 +705,119 @@ class SeggerTrainer:
             best_sim[rk[upd]] = sk[upd]
             best_enc[rk[upd]] = ek[upd]
         return best_sim, best_enc
+
+    # ------------------------------------------------------------------
+    def _whole_slide_mesh(self, mesh=None,
+                         grid: Optional[Tuple[int, int]] = None):
+        """The mesh of a whole-slide call: with ``grid=(dx, dy)`` a grid
+        mesh over ``mesh``'s devices when it has ``dx * dy``, else over
+        every visible card (on the CPU, ``dx * dy`` shards on it); without
+        a grid ``mesh``, the trainer's, or every visible card (on the CPU,
+        one shard)."""
+        from ..parallel.mesh import make_grid_mesh, make_mesh
+
+        cpu = self.device.type == "cpu"
+        if grid is not None:
+            dx, dy = grid
+            if mesh is not None and mesh.size == dx * dy:
+                devices = mesh.devices
+            else:
+                devices = [self.device] * (dx * dy) if cpu else None
+            return make_grid_mesh(dx, dy, devices)
+        mesh = mesh or self.mesh
+        if mesh is None:
+            mesh = make_mesh(devices=[self.device] if cpu else None)
+        return mesh
+
+    def predict_whole_slide(self, mesh=None,
+                            grid: Optional[Tuple[int, int]] = None
+                            ) -> Dict[str, np.ndarray]:
+        """Whole-slide prediction by halo exchange: the graph is
+        partitioned into strips over the mesh (``parallel/halo.py``), or
+        into a ``grid=(dx, dy)`` (``parallel/grid.py``), and boundary
+        rows are exchanged before every layer, so the result is exact,
+        with no margins and no dedupe.  Flat arrays of (row_index,
+        cell_encoding, similarity, gene) for every transcript."""
+        from ..parallel.grid import grid_predict
+        from ..parallel.halo import sharded_predict
+
+        if not self.initialized:
+            raise RuntimeError("call init() or load_params() first")
+        mesh = self._whole_slide_mesh(mesh, grid)
+        if grid is not None:
+            return grid_predict(self.model, self.graph, mesh)
+        return sharded_predict(self.model, self.graph, mesh)
+
+    def shard_generator(self, epoch: int, shard: int) -> torch.Generator:
+        """Shard ``shard``'s generator of dropout seeds and loss draws in
+        whole-slide epoch ``epoch``, seeded with ``(seed + 1, epoch,
+        shard)``: the counterpart of the JAX package's ``fold_in`` of the
+        epoch and the shard's axis index."""
+        state = np.random.SeedSequence(
+            [self.cfg.seed + 1, epoch, shard]).generate_state(1, np.uint64)
+        return torch.Generator().manual_seed(int(state[0]))
+
+    def fit_whole_slide(self, mesh=None, max_epochs: Optional[int] = None,
+                        grid: Optional[Tuple[int, int]] = None
+                        ) -> List[Dict]:
+        """Margin-free whole-slide training over the mesh.
+
+        :meth:`fit` keeps the reference's semantics (margin tiles,
+        cross-tile edges dropped); this path shards the slide itself into
+        strips (or a ``grid=(dx, dy)``) and trains with exact receptive
+        fields: the per-layer halo exchange in the forward, gradients
+        back through it, loss statistics summed over shards into exact
+        whole-slide masked means (``parallel.halo.make_train_step``).
+        One optimizer step per epoch, the whole slide being the batch;
+        each shard draws its randomness from :meth:`shard_generator`.
+        Returns the history, with the JAX package's keys, which also
+        becomes ``self.history``; ``step_log`` gets each epoch's row and
+        host seconds."""
+        from ..parallel.grid import (
+            build_grid_sharded_graph, make_grid_train_step,
+        )
+        from ..parallel.halo import (
+            build_sharded_graph, make_sharded_train_step,
+        )
+        from ..parallel.mesh import put_sharded
+
+        cfg = self.cfg
+        max_epochs = cfg.max_epochs if max_epochs is None else max_epochs
+        mesh = self._whole_slide_mesh(mesh, grid)
+        if grid is not None:
+            stacked, halo, dropped = build_grid_sharded_graph(
+                self.graph, *grid, for_training=True)
+            make_step = make_grid_train_step
+        else:
+            stacked, halo, dropped = build_sharded_graph(
+                self.graph, mesh.size, for_training=True)
+            make_step = make_sharded_train_step
+        if dropped.any():
+            logger.warning("whole-slide training dropped %s non-adjacent-"
+                           "shard edges (tt, sg, cand)", dropped.tolist())
+        if not self.initialized:
+            self.init()
+        shards, halos = put_sharded(stacked, mesh), put_sharded(halo, mesh)
+        step = make_step(self.model, self.optimizer, mesh,
+                         self.tx_similarity, self.bd_similarity,
+                         tx_margin=cfg.tx_margin, sg_margin=cfg.sg_margin,
+                         sg_loss_type=cfg.sg_loss_type)
+        history = []
+        for epoch in range(max_epochs):
+            t0 = time.perf_counter()
+            gens = [self.shard_generator(epoch, d) for d in range(mesh.size)]
+            loss, aux = step(
+                shards, halos, [torch_seed_source(g) for g in gens],
+                lambda d, tile: L.draw_loss_randoms(tile, gens[d]),
+                self.weights(epoch, max_epochs))
+            row = torch.cat([loss[None], aux]).tolist()
+            self.step_log.append((epoch, row, time.perf_counter() - t0))
+            rec = {"epoch": epoch}
+            rec.update(_means("train", [row]))
+            history.append(rec)
+            logger.info("whole-slide epoch %d: loss=%.4f", epoch, row[0])
+        self.history = history
+        return history
 
 
 def _means(prefix: str, rows: List[List[float]]) -> Dict[str, float]:

@@ -4,7 +4,9 @@ package's: the same parsers plus ``--device``, ``segment --device cpu
 on the same frames, its checkpoint in the JAX package's
 ``load_checkpoint``, ``export`` against the JAX package's ``export`` on
 the same segmentation directory, the boundary pool on fork and spawn,
-the debug commands, and the options that are not ported yet."""
+the debug commands, the whole-slide paths (``--distributed-predict
+--distributed-train [--grid]``) and the option that is not ported yet
+(``--devices`` above 1 without them)."""
 import argparse
 import dataclasses
 import subprocess
@@ -312,10 +314,7 @@ def test_debug_predict_only(dataset, segmented, tmp_path):
 
 
 UNPORTED = {
-    "--distributed-train": ([], "Queue 1 item 7"),
-    "--distributed-predict": ([], "Queue 1 item 7"),
-    "--grid": (["2x2"], "Queue 1 item 7"),
-    "--devices": (["2"], "Queue 1 item 7"),
+    "--devices": (["2"], "Queue 1 item 9"),
 }
 
 
@@ -329,6 +328,32 @@ def test_unported_option_raises_before_reading(option, tmp_path):
         main(["segment", "-i", str(tmp_path / "missing"), "-o",
               str(tmp_path / "out"), "--device", "cpu", option, *values])
     assert not list(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("extra", [[], ["--devices", "3"],
+                                   ["--grid", "2x2"]],
+                         ids=["strip", "strips", "grid"])
+def test_segment_distributed(dataset, tmp_path, extra):
+    """``segment --distributed-predict --distributed-train`` trains and
+    predicts on the whole slide (one strip on the CPU, three strips, or a
+    2x2 grid of CPU shards): one optimizer step per epoch, and a table
+    with one row per transcript."""
+    out = tmp_path / "out"
+    assert main(["segment", "-i", str(dataset), "-o", str(out), "--device",
+                 "cpu", "--no-anndata", "--distributed-predict",
+                 "--distributed-train", *flags(PIPE),
+                 *flags({**TRAIN, "max_epochs": 1}), *extra]) == 0
+    last = t_segment.run_segment.last_run
+    g, tr = last["graph"], last["trainer"]
+    assert set(last["walls"]) == {"read", "features + graph", "fit",
+                                  "predict", "write"}
+    assert len(tr.history) == 1 and np.isfinite(tr.history[0]["train:loss"])
+    seg = pd.read_parquet(out / "segger_segmentation.parquet")
+    assert seg["row_index"].is_unique
+    np.testing.assert_array_equal(np.sort(seg["row_index"]),
+                                  np.sort(g.tx_index))
+    assert seg["segger_cell_id"].notna().mean() > 0.5
+    assert len(pd.read_csv(out / "metrics.csv")) == 1
 
 
 def test_segment_without_device_needs_cuda(tmp_path):

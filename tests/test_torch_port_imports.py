@@ -3,9 +3,10 @@ import neither JAX nor the JAX package, nothing of scikit-learn or h5py
 at module level (the GPU machine has neither), and a small fit and
 prediction, the segmentation pipeline from a synthetic slide to its
 table, the command line from a raw Xenium directory to the exported
-boundaries, and the out-of-core path (columnar transcripts, the
-memmapped graph plane, ``segment --low-memory --graph-cache``, the
-native spatial core) run with all of them blocked."""
+boundaries, the out-of-core path (columnar transcripts, the memmapped
+graph plane, ``segment --low-memory --graph-cache``, the native spatial
+core) and the whole-slide halo-exchange path run with all of them
+blocked."""
 import ast
 import subprocess
 import sys
@@ -135,6 +136,23 @@ _SCRIPT = textwrap.dedent("""
     assert set(o["branches"]["walls"]) == {{"native", "kdtree"}}
     from segger_tpu_torch import native
     assert native.library_path().exists()
+
+    # the whole-slide path (chip_smoke.py's phase 10, small, on the CPU):
+    # predict_whole_slide at 1 strip, 4 strips and a 2x2 grid in bf16 and
+    # f32, the surrogate gradient, fit_whole_slide, and segment
+    # --distributed-predict --distributed-train
+    with tempfile.TemporaryDirectory() as work:
+        w = chip_smoke.drive_whole_slide(
+            work, r["graph"], r["state"], r["truth"], r["table"],
+            device="cpu", n_cells=60, n_genes=20, epochs=1,
+            pipeline_kw=dict(cells_embedding_size=8, genes_min_counts=5,
+                             cells_min_counts=3, tiling_nodes_per_tile=600,
+                             prediction_graph_buffer_ratio=0.2),
+            train_kw=dict(hidden_channels=16, out_channels=16,
+                          n_mid_layers=0))
+    assert set(w["checks"]) == {{"1 strip", "4 strips", "2x2 grid"}}
+    assert w["grad_err"] <= chip_smoke.WS_GRAD_ATOL
+    assert w["cli"]["accuracy"] > 0.6 and len(w["cli"]["history"]) == 1
     assert not any(m.split(".")[0] in {blocked!r}
                    for m in sys.modules if sys.modules[m] is not None)
     print("OK")
@@ -191,3 +209,11 @@ def test_port_builds_its_own_native_source():
     assert native.library_path().parent == ROOT / "build" / "native"
     for rel in ("native.py", "utils_profiling.py", "data/columnar.py"):
         assert ROOT / "segger_tpu_torch" / rel in PORT_FILES
+
+
+def test_parallel_modules_are_checked():
+    """Every module of the whole-slide layer is among the files whose
+    imports are checked above."""
+    for rel in ("__init__.py", "mesh.py", "_build_common.py", "halo.py",
+                "grid.py"):
+        assert ROOT / "segger_tpu_torch" / "parallel" / rel in PORT_FILES
