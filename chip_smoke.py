@@ -7,8 +7,8 @@
                                      # step, by kernel, into
                                      # chiprun_out/{predict,train}_profile.txt
     python3 chip_smoke.py --whole-slide  # the build, phase 7's pipeline
-                                     # and phase 10 only (run it on a
-                                     # host of several cards)
+                                     # and phases 10 and 11 only (run
+                                     # it on a host of several cards)
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -67,11 +67,16 @@ Phases (any failure exits non-zero; nothing is caught):
    transcript, a cell for exactly the transcripts with a candidate edge,
    ``predict_streaming`` + ``write_dense`` equal to ``predict`` +
    ``write``, and the accuracy on transcripts with two or more candidate
-   cells after training and with the initial weights; then K1, K2, K3
-   and K5 against their plain versions on the pipeline's own first
-   tiles (its predict tile's tables and variable-K candidate table with
-   its empty rows, its training tile's tables), timed, at phase 2's
-   tolerances.  The h5ad export is off there (``save_anndata=False``):
+   cells after training and with the initial weights; the port's
+   ``segmentation_report`` of the table against the true cells and the
+   median ``percent_contamination`` of ``calculate_contamination`` over
+   an in-memory ``AnnDataLite`` of the table (``build_anndata``), its
+   cells labelled with their synthetic expression programs, against a
+   reference from ``expression_summary_from_anndata`` (recorded, not
+   held); then K1, K2, K3 and K5 against their plain versions on the
+   pipeline's own first tiles (its predict tile's tables and variable-K
+   candidate table with its empty rows, its training tile's tables),
+   timed, at phase 2's tolerances.  The h5ad export is off there (``save_anndata=False``):
    the GPU machine has no h5py;
 8. the command line users run: phase 7's slide written as a raw Xenium
    v2 directory (``write_xenium_like``), then ``segger-tpu-torch segment
@@ -126,7 +131,20 @@ Phases (any failure exits non-zero; nothing is caught):
    extended tables (the middle strip's, a grid shard's), K5 in float32
    as this path scores.  Each wall (build, predict, fit epoch) and
    ``torch.cuda.max_memory_allocated`` are printed beside the card's
-   name and power limit.
+   name and power limit;
+11. tile data parallelism (``drive_tile_dp``) on phase 7's graph and
+   tiling at ``TrainConfig()`` width with ``tiles_per_step = 4``: the
+   one-device trainer fits 2 epochs from the seeded weights and
+   predicts; ``SeggerTrainer(mesh=)`` over 4 shards on ``cuda:0`` fits
+   from the same weights (every step's loss within ``GRAPH_STEP_RTOL``,
+   the launches of K1, K2, K3 and K5 equal to the one-device fit's, each
+   shard's counted from its steps' replays) and predicts with the
+   one-device weights (cells equal on at least ``MIN_AGREEMENT`` of the
+   transcripts, bit-equality recorded, the same launches); with several
+   cards the same mesh with shard d on card d (losses within
+   ``GRAPH_STEP_RTOL``, predict bit-equal) and with four ``segment
+   --devices 4`` on phase 7's slide as a Xenium directory; then K1, K2,
+   K3 and K5 against their plain versions on one shard's own tiles.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel JSON record, and the line before that the card's
@@ -969,6 +987,49 @@ def check_table(seg, g, truth, where) -> dict:
             "multi": multi, "n_with_cand": with_cand.size}
 
 
+def table_quality(seg, synth) -> dict:
+    """The port's ``segmentation_report`` of a segmentation table against
+    the true cells, and the contamination QC of its cells: an in-memory
+    ``AnnDataLite`` of the table (``build_anndata``, each cell labelled
+    with its synthetic expression program), a reference from
+    ``expression_summary_from_anndata`` on it, ``calculate_contamination``
+    and the median of ``percent_contamination``.  Host only, no h5py."""
+    import numpy as np
+    import pandas as pd
+
+    from segger_tpu_torch.export.anndata_writer import build_anndata
+    from segger_tpu_torch.metrics import segmentation_report
+    from segger_tpu_torch.validation import (
+        calculate_contamination, expression_summary_from_anndata,
+    )
+
+    t0 = time.perf_counter()
+    truth = pd.Series(np.asarray(synth.truth_cell, dtype=object))
+    truth[truth == ""] = None
+    report = segmentation_report(seg, truth)
+    report_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tx = synth.transcripts.set_index("row_index").loc[
+        seg["row_index"].to_numpy()]
+    ad = build_anndata(pd.DataFrame({
+        "segger_cell_id": seg["segger_cell_id"].astype(object).to_numpy(),
+        "feature_name": tx["feature_name"].to_numpy(),
+        "x": tx["x"].to_numpy(), "y": tx["y"].to_numpy()}))
+    cell = ad.obs.index.to_numpy().astype(str)
+    ad.obs["cell_type"] = [f"type_{synth.cell_type[int(c[5:])]}"
+                           for c in cell]
+    ad.layers["counts"] = ad.X
+    reference = expression_summary_from_anndata(ad, "cell_type", "counts")
+    calculate_contamination(ad, reference, counts_layer="counts",
+                            spatial_key="X_spatial", cell_type_key="cell_type")
+    pc = ad.obs["percent_contamination"].to_numpy()
+    return {"report": report, "report_s": report_s,
+            "contamination_s": time.perf_counter() - t0,
+            "cells": int(ad.n_obs),
+            "median_percent_contamination": float(np.median(pc)),
+            "mean_percent_contamination": float(pc.mean())}
+
+
 def drive_pipeline(out_dir, device=None, n_cells=PIPE_CELLS,
                    n_genes=PIPE_GENES, epochs=PIPE_EPOCHS,
                    tx_per_cell=PIPE_TX_PER_CELL, pipeline_kw=None,
@@ -1015,10 +1076,11 @@ def drive_pipeline(out_dir, device=None, n_cells=PIPE_CELLS,
     want, run = run_launches(pipe, tr, epochs)
     ptiles = run["ptiles"]
 
-    # the table
+    # the table, its quality report and its contamination QC
     truth = np.asarray(synth.truth_cell)   # by row_index
     table = check_table(seg, g, truth, "pipeline")
     multi = table["multi"]
+    quality = table_quality(seg, synth)
 
     # predict_streaming + write_dense on the same trainer
     t0 = time.perf_counter()
@@ -1068,6 +1130,7 @@ def drive_pipeline(out_dir, device=None, n_cells=PIPE_CELLS,
             "history": tr.history, "accuracy": table["accuracy"],
             "accuracy_multi": table["accuracy_multi"],
             "accuracy_multi_init": acc0_multi, "graph": g,
+            "tree": pipe.tree, "quality": quality,
             "state": state, "truth": truth,
             # the first predict and training tiles, for the kernel checks
             "cfg": tr.cfg, "tiles": (first_tile(tr, run["pplans"][0]),
@@ -1989,11 +2052,311 @@ def print_whole_slide(ws, n_tx, n_bd, card) -> None:
     print(f"whole-slide launches {json.dumps(ws['counts'])}")
 
 
+# phase 11: tile data parallelism
+TILE_DP_SHARDS = 4                # shards of the mesh, all on cuda:0
+TILE_DP_TPS = 4                   # tiles_per_step of both trainers
+_COUNT_KEYS = ("fwd", "bwd", "score", "attn", "banded")
+
+
+def _as_counts(launches) -> dict:
+    """A compiled step's launch list (``graphs._COUNTED`` order) as
+    ``read_counts`` names it."""
+    return {k: dict(v) if isinstance(v, dict) else v
+            for k, v in zip(_COUNT_KEYS, launches)}
+
+
+def _add_counts(a: dict, b: dict, times: int = 1) -> dict:
+    return {k: ({m: a[k][m] + times * b[k][m] for m in a[k]}
+                if isinstance(a[k], dict) else a[k] + times * b[k])
+            for k in a}
+
+
+def shard_counts(tr) -> list:
+    """Each shard's launches of a tile-data-parallel trainer's compiled
+    steps on CUDA: a step's warm-up and each replay launch what its
+    capture recorded (a split train step: forward and backward)."""
+    zero = {k: (dict.fromkeys(("nokeep", "prng", "keep"), 0)
+                if k in ("fwd", "bwd") else 0) for k in _COUNT_KEYS}
+    out = [zero for _ in range(tr.mesh.size)]
+    for (kind, _, d), step in tr._steps.items():
+        if step.launches is None:
+            continue
+        runs = step.replays + 1
+        out[d] = _add_counts(out[d], _as_counts(step.launches), runs)
+        if kind == "train":
+            out[d] = _add_counts(out[d], _as_counts(step.bwd_launches), runs)
+    return out
+
+
+def drive_tile_dp(work_dir, graph, tree, truth, device=None,
+                  epochs=PIPE_EPOCHS, n_cells=PIPE_CELLS, n_genes=PIPE_GENES,
+                  tx_per_cell=PIPE_TX_PER_CELL, pipeline_kw=None,
+                  train_kw=None) -> dict:
+    """Phase 11: tile data parallelism on phase 7's graph and tiling at
+    ``TrainConfig()`` width with ``tiles_per_step = TILE_DP_TPS``, the
+    kernel counts set to 0 just before each run and read just after.
+
+    (a) the one-device trainer: ``fit`` for ``epochs`` from the seeded
+    initial weights, then ``predict``;
+    (b) ``SeggerTrainer(mesh=)`` over ``TILE_DP_SHARDS`` shards on one
+    device (``cuda:0`` by default), from the same initial weights: every
+    step's loss within ``GRAPH_STEP_RTOL`` of (a)'s, the launches of K1,
+    K2, K3 and K5 equal to (a)'s (each shard's counted from its steps'
+    replays);
+    (c) the mesh's ``predict`` with (a)'s trained weights: the arrays of
+    (a)'s predict (cells equal on at least ``MIN_AGREEMENT`` of the
+    transcripts, bit-equality recorded), the same launches;
+    (d) with several cards visible, shard ``d`` on card ``d mod k`` (k up
+    to 4): the fit's losses within ``GRAPH_STEP_RTOL`` of (b)'s, the
+    predict bit-equal to (c)'s; with four cards also ``segment --devices
+    4`` on phase 7's slide as a Xenium directory (the table passes
+    ``check_table``).
+    Returns the walls, counts, losses and agreements, and one shard's
+    tiles for the kernel checks."""
+    import numpy as np
+    import torch
+
+    from segger_tpu_torch.data.partition import (
+        make_fit_tiles, make_predict_tiles,
+    )
+    from segger_tpu_torch.parallel.mesh import make_mesh
+    from segger_tpu_torch.pipeline import PipelineConfig
+    from segger_tpu_torch.train.trainer import SeggerTrainer, TrainConfig
+
+    cuda = device is None or torch.device(device).type == "cuda"
+    dev = torch.device("cuda", 0) if cuda else torch.device(device)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    pcfg = PipelineConfig(seed=SEED, **(pipeline_kw or {}))
+    fit_tiles = make_fit_tiles(graph, tree,
+                               margin=pcfg.tiling_margin_training)
+    ptiles = make_predict_tiles(graph, tree,
+                                margin=pcfg.tiling_margin_prediction)
+    cfg = TrainConfig(max_epochs=epochs, tiles_per_step=TILE_DP_TPS,
+                      **(train_kw or {}))
+    walls, counts, peaks = {}, {}, {}
+
+    def run(key, fn):
+        reset_counts()
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        walls[key] = time.perf_counter() - t0
+        counts[key] = read_counts()
+        if cuda:    # the run's own peak on cuda:0, above what it found
+            top = torch.cuda.max_memory_allocated()
+            peaks[key] = (top - held) / 2**20
+            peaks["phase"] = max(peaks.get("phase", 0.0),
+                                 (top - base) / 2**20)
+        return out
+
+    def trainer(mesh):
+        tr = SeggerTrainer(graph, cfg, device=dev, mesh=mesh)
+        tr.init()
+        return tr
+
+    def losses(tr):
+        return [row[0] for _, row, _ in tr.step_log]
+
+    # (a) one device
+    one = trainer(None)
+    init = {k: v.clone() for k, v in one.model.state_dict().items()}
+    run("fit one device", lambda: one.fit(fit_tiles, max_epochs=epochs))
+    pred_one = run("predict one device", lambda: one.predict(ptiles))
+    # (b) the mesh, every shard on one device
+    mesh = make_mesh(TILE_DP_SHARDS, [dev] * TILE_DP_SHARDS)
+    dp = trainer(mesh)
+    if not all(torch.equal(v, init[k])
+               for k, v in dp.model.state_dict().items()):
+        raise AssertionError("tile-dp: the initial weights differ")
+    run("fit mesh", lambda: dp.fit(fit_tiles, max_epochs=epochs))
+    fit_shards = shard_counts(dp) if cuda else None
+    got, want = losses(dp), losses(one)
+    loss_rel = float(np.max(np.abs(np.subtract(got, want))
+                            / np.abs(want)))
+    if not (len(got) == len(want) > 0 and loss_rel <= GRAPH_STEP_RTOL):
+        raise AssertionError(f"tile-dp fit losses {got}, one device {want}")
+    # (c) the mesh's predict with the one-device weights
+    dp.model.load_state_dict(one.model.state_dict())
+    pred_dp = run("predict mesh", lambda: dp.predict(ptiles))
+    shards = shard_counts(dp) if cuda else None
+    pred_shards = ([_add_counts(b, a, -1) for a, b in zip(fit_shards,
+                                                          shards)]
+                   if cuda else None)
+    agree = float((pred_dp["cell_encoding"]
+                   == pred_one["cell_encoding"]).mean())
+    bit_equal = all(np.array_equal(pred_dp[k], pred_one[k])
+                    for k in pred_one)
+    if not agree >= MIN_AGREEMENT:
+        raise AssertionError(f"tile-dp predict agrees with one device on "
+                             f"{agree} of the transcripts")
+    enc = pred_dp["cell_encoding"].astype(np.int64)
+    ids = np.where(enc >= 0, graph.bd_cell_id[np.maximum(enc, 0)], None)
+    acc = _accuracy(pred_dp["row_index"].astype(np.int64), ids, truth)
+    if not acc > MIN_ACCURACY:
+        raise AssertionError(f"tile-dp predict accuracy {acc}")
+    # the launches: the same kernels on the same tiles, split over shards
+    for a, b in (("fit mesh", "fit one device"),
+                 ("predict mesh", "predict one device")):
+        if cuda and counts[a] != counts[b]:
+            raise AssertionError(f"tile-dp {a}: launches {counts[a]}, one "
+                                 f"device {counts[b]}")
+    for shard_list, key in ((fit_shards, "fit mesh"),
+                            (pred_shards, "predict mesh")):
+        if not cuda:
+            continue
+        total = shard_list[0]
+        for c in shard_list[1:]:
+            total = _add_counts(total, c)
+        if total != counts[key]:
+            raise AssertionError(f"tile-dp {key}: the shards' launches "
+                                 f"{shard_list} do not sum to {counts[key]}")
+    tables = {}
+    for kind in ("predict", "train"):
+        key = next(k for k in dp._steps if k[0] == kind and k[2] == 1)
+        tables[kind] = dp._steps[key].inputs.batch.map_arrays(
+            lambda a: a[0])
+    result = {"walls": walls, "counts": counts, "peaks_mib": peaks,
+              "fit_shards": fit_shards,
+              "predict_shards": pred_shards, "losses": got,
+              "losses_one": want, "loss_rel": loss_rel,
+              "history": dp.history, "history_one": one.history,
+              "agreement": agree, "bit_equal": bit_equal, "accuracy": acc,
+              "step_s": [sec for _, _, sec in dp.step_log],
+              "step_s_one": [sec for _, _, sec in one.step_log],
+              "captures": dict(dp.captures), "n_tiles": (len(fit_tiles),
+                                                        len(ptiles)),
+              "steps": len(dp.step_log), "tiles": tables, "multi": None,
+              "cli": None}
+    del one
+    # (d) several cards: shard d on card d mod k
+    n_cards = torch.cuda.device_count() if cuda else 0
+    result["n_cards"] = n_cards
+    if n_cards > 1:
+        k = min(TILE_DP_SHARDS, n_cards)
+        cards = make_mesh(TILE_DP_SHARDS, [torch.device("cuda", d % k)
+                                           for d in range(TILE_DP_SHARDS)])
+        multi = trainer(cards)
+        run(f"fit mesh over {k} cards",
+            lambda: multi.fit(fit_tiles, max_epochs=epochs))
+        got_k = losses(multi)
+        rel_k = float(np.max(np.abs(np.subtract(got_k, got))
+                             / np.abs(got)))
+        multi.model.load_state_dict(dp.model.state_dict())
+        pred_k = run(f"predict mesh over {k} cards",
+                     lambda: multi.predict(ptiles))
+        result["multi"] = {"cards": k, "losses": got_k, "loss_rel": rel_k,
+                           "predict_bit_equal": all(
+                               np.array_equal(pred_k[key], pred_dp[key])
+                               for key in pred_dp)}
+        if not result["multi"]["predict_bit_equal"]:
+            raise AssertionError(f"tile-dp over {k} cards: the predict "
+                                 "differs from one card's")
+        if not rel_k <= GRAPH_STEP_RTOL:
+            raise AssertionError(f"tile-dp over {k} cards: losses {got_k}, "
+                                 f"one card {got}")
+        del multi
+    if n_cards >= 4:
+        from segger_tpu_torch.cli.main import main as cli
+        from segger_tpu_torch.cli.segment import run_segment
+        from segger_tpu_torch.data.synthetic import write_xenium_like
+
+        import pandas as pd
+
+        work = Path(work_dir)
+        synth = pipeline_slide(n_cells, n_genes, tx_per_cell)
+        raw = write_xenium_like(work / "xenium", synth)
+        out = work / "out"
+        reset_counts()
+        code = cli(["segment", "-i", str(raw), "-o", str(out),
+                    "--no-anndata", "--devices", "4", "--max-epochs",
+                    str(epochs), "--seed", str(SEED),
+                    *cli_flags(pipeline_kw), *cli_flags(train_kw)])
+        sync()
+        if code != 0:
+            raise AssertionError(f"segment --devices 4 exited {code}")
+        last = run_segment.last_run
+        run_segment.last_run = None
+        tr = last["trainer"]
+        if not (tr.tile_dp and tr.mesh.size == 4
+                and tr.cfg.tiles_per_step == 4):
+            raise AssertionError("segment --devices 4: not tile data "
+                                 "parallel over 4 cards")
+        seg = pd.read_parquet(out / "segger_segmentation.parquet")
+        table = check_table(seg, last["pipeline"].graph,
+                            np.asarray(synth.truth_cell), "segment "
+                            "--devices 4")
+        result["cli"] = {"walls": last["walls"], "counts": read_counts(),
+                         "accuracy": table["accuracy"],
+                         "history": tr.history}
+    result["peak_mib"] = (max(peaks.pop("phase"),
+                              (torch.cuda.max_memory_allocated() - base)
+                              / 2**20) if cuda else None)
+    return result
+
+
+def print_tile_dp(td, card) -> None:
+    """Phase 11's walls, losses, agreements and launches."""
+    print(f"tile-dp: phase 7's graph and tiling ({td['n_tiles'][0]} fit, "
+          f"{td['n_tiles'][1]} predict tiles), TrainConfig() width, "
+          f"tiles_per_step {TILE_DP_TPS}, one device against "
+          f"{TILE_DP_SHARDS} shards on cuda:0, {td['steps']} steps; walls "
+          f"(s) " + json.dumps({k: round(v, 4)
+                                for k, v in td["walls"].items()})
+          + f"; max_memory_allocated {td['peak_mib']:.1f} MiB above the "
+          f"earlier phases' tensors, each run's on cuda:0 above what it "
+          f"found (MiB) " + json.dumps({k: round(v, 1) for k, v in
+                                        td["peaks_mib"].items()})
+          + f"; captures {td['captures']} | {card}")
+    print(f"tile-dp fit: step losses {json.dumps(td['losses'])}, one device "
+          f"{json.dumps(td['losses_one'])}, largest relative difference "
+          f"{td['loss_rel']:.3e} (limit {GRAPH_STEP_RTOL})")
+    print("tile-dp step walls (s): mesh " + json.dumps(
+        [round(v, 4) for v in td["step_s"]]) + ", one device " + json.dumps(
+        [round(v, 4) for v in td["step_s_one"]]))
+    for a, b in zip(td["history"], td["history_one"]):
+        print("tile-dp fit epoch " + json.dumps(a) + " | one device "
+              + json.dumps(b))
+    print(f"tile-dp predict with the one-device weights: cells agree on "
+          f"{td['agreement']:.6f} of the transcripts (need >= "
+          f"{MIN_AGREEMENT}), bit-equal {td['bit_equal']}, accuracy "
+          f"{td['accuracy']:.4f}")
+    print(f"tile-dp launches {json.dumps(td['counts'])}")
+    print(f"tile-dp launches by shard: fit {json.dumps(td['fit_shards'])}; "
+          f"predict {json.dumps(td['predict_shards'])}")
+    if td["multi"] is None:
+        print(f"tile-dp on several cards: not run, {td['n_cards']} card "
+              "visible")
+    else:
+        print(f"tile-dp over {td['multi']['cards']} cards: "
+              + json.dumps(td["multi"]))
+    if td["cli"] is None:
+        print("tile-dp cli: segment --devices 4 not run (needs four cards)")
+    else:
+        print("tile-dp cli: segment --devices 4 on phase 7's slide as a "
+              "Xenium directory, walls (s) " + json.dumps(
+                  {k: round(v, 3) for k, v in td["cli"]["walls"].items()})
+              + f", accuracy {td['cli']['accuracy']:.4f}, launches "
+              f"{json.dumps(td['cli']['counts'])}")
+
+
 def whole_slide_only(card) -> int:
     """``--whole-slide``: phase 7's pipeline run for its graph and
-    weights, then phase 10, with no timing of kernels; on a host of
-    several cards this holds the 4-strip runs over the cards against one
-    card at a quarter of the full script's chip time."""
+    weights, then phases 10 and 11, with no timing of kernels; on a host
+    of several cards this holds the 4-strip runs and the tile-data-
+    parallel fit and predict over the cards against one card, and runs
+    ``segment --devices 4`` with four cards, at a fraction of the full
+    script's chip time."""
     import tempfile
 
     import torch
@@ -2004,6 +2367,10 @@ def whole_slide_only(card) -> int:
         ws = drive_whole_slide(work_dir, pipe["graph"], pipe["state"],
                                pipe["truth"], pipe["table"])
     print_whole_slide(ws, pipe["n_tx"], pipe["n_bd"], card)
+    with tempfile.TemporaryDirectory() as work_dir:
+        td = drive_tile_dp(work_dir, pipe["graph"], pipe["tree"],
+                           pipe["truth"])
+    print_tile_dp(td, card)
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2457,6 +2824,16 @@ def main(argv) -> int:
           f"with two or more candidate cells {pipe['accuracy_multi']:.4f} "
           f"trained, {pipe['accuracy_multi_init']:.4f} with the initial "
           f"weights (recorded, not held); write_dense equals write")
+    q = pipe["quality"]
+    print("pipeline segmentation_report against the true cells: "
+          + json.dumps(q["report"]) + f" ({q['report_s']:.3f} s)")
+    print(f"pipeline contamination QC of the table's {q['cells']} cells "
+          f"(calculate_contamination, reference from "
+          f"expression_summary_from_anndata over the synthetic cell types): "
+          f"median percent_contamination "
+          f"{q['median_percent_contamination']:.4f}, mean "
+          f"{q['mean_percent_contamination']:.4f} "
+          f"({q['contamination_s']:.3f} s)")
     print(f"pipeline launches {pipe_counts}")
     if not (pipe["captures"]["predict"] == 1 and pipe["captures"]["eval"]
             == 1 and 1 <= pipe["captures"]["train"] <= PIPE_EPOCHS):
@@ -2599,6 +2976,7 @@ def main(argv) -> int:
     # with its trained weights: predict at 1 strip, 4 strips and a 2x2
     # grid, the surrogate gradient, fit_whole_slide, several cards when
     # there are, and segment --distributed-predict --distributed-train
+    graph7, tree7, truth7 = pipe["graph"], pipe.pop("tree"), pipe["truth"]
     with tempfile.TemporaryDirectory() as work_dir:
         ws = drive_whole_slide(work_dir, pipe.pop("graph"),
                                pipe.pop("state"), pipe.pop("truth"), table7)
@@ -2641,6 +3019,32 @@ def main(argv) -> int:
     for kernel, where, r in checks[n_checked:]:
         print(f"{kernel} [{where}] " + json.dumps(r))
     del ws["tables"]
+
+    # -- phase 11: tile data parallelism on phase 7's graph and tiling,
+    # one device against a mesh of 4 shards on cuda:0 (and over the cards
+    # when there are several), then the kernels on one shard's tiles
+    with tempfile.TemporaryDirectory() as work_dir:
+        td = drive_tile_dp(work_dir, graph7, tree7, truth7)
+    del graph7, tree7, truth7
+    print_tile_dp(td, card)
+    ptile, ftile = td["tiles"]["predict"], td["tiles"]["train"]
+    n_checked = len(checks)
+    for name, i, m in tile_tables(ptile):
+        checks.append(("K1", f"tile-dp shard {name}", check_edge_stage(
+            i, m, ptile.n_tx, bf16, rng, p_heads, p_hc)))
+    checks.append(("K5", "tile-dp shard cand", check_score(
+        ptile.cand.idx, ptile.cand.mask, ptile.n_bd, rng,
+        f=pcfg.out_channels)))
+    for name, i, m in tile_tables(ftile):
+        where = f"tile-dp train shard {name}"
+        checks.append(("K2", where, check_edge_stage(
+            i, m, ftile.n_tx, bf16, rng, p_heads, p_hc, "prng")))
+        for mode in ("prng", "nokeep"):
+            checks.append(("K3", where, check_edge_stage_bwd(
+                i, m, ftile.n_tx, bf16, rng, p_heads, p_hc, mode)))
+    for kernel, where, r in checks[n_checked:]:
+        print(f"{kernel} [{where}] " + json.dumps(r))
+    del ptile, ftile, td["tiles"]
 
     def summary(kernel, tile_prefix, modes=None):
         rs = [r for k, w, r in checks if k == kernel]
@@ -2778,6 +3182,35 @@ def main(argv) -> int:
         rec["launches"] += n
         rec["launches_by_path"]["whole-slide"] = n
         rec["whole_slide_shard"] = on_pipeline(kernel, prefix, modes)
+    # phase 11's launches, by shard, and its shard's checks
+    td_paths = {"tile-dp": ("fit mesh", "predict mesh"),
+                "tile-dp one-device": ("fit one device",
+                                       "predict one device")}
+    for key in td["counts"]:
+        if "cards" in key:
+            td_paths.setdefault("tile-dp cards", ())
+            td_paths["tile-dp cards"] += (key,)
+    for rec, get, kernel, prefix, modes in (
+            (kernels[0], lambda c: c["fwd"]["nokeep"], "K1",
+             "tile-dp shard", None),
+            (kernels[1], lambda c: c["fwd"]["prng"], "K2",
+             "tile-dp train shard", None),
+            (kernels[2], lambda c: c["bwd"]["prng"] + c["bwd"]["nokeep"],
+             "K3", "tile-dp train shard", ("prng",)),
+            (kernels[4], lambda c: c["score"], "K5", "tile-dp shard",
+             None)):
+        for path, keys in td_paths.items():
+            n = sum(get(td["counts"][k]) for k in keys)
+            rec["launches"] += n
+            rec["launches_by_path"][path] = n
+        if td["cli"] is not None:
+            n = get(td["cli"]["counts"])
+            rec["launches"] += n
+            rec["launches_by_path"]["tile-dp cli"] = n
+        rec["tile_dp_by_shard"] = [
+            get(f) + get(p) for f, p in zip(td["fit_shards"],
+                                            td["predict_shards"])]
+        rec["tile_dp_shard"] = on_pipeline(kernel, prefix, modes)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,9 +17,12 @@ no CUDA.  ``--distributed-train`` and ``--distributed-predict`` train and
 predict on the whole slide, sharded into strips over ``--devices N``
 cards (every visible one by default; with ``--device cpu``, N shards on
 the CPU) or into a ``--grid DXxDY`` of DX·DY devices, with a per-layer
-halo exchange (``parallel/``).  Tile data parallelism (``--devices``
-above 1 without them) is not ported and raises ``NotImplementedError``
-before any file is read.
+halo exchange (``parallel/``).  ``--devices N`` above 1 (its default, 0,
+means every visible card) also makes the trainer tile data parallel over
+N devices (``SeggerTrainer(mesh=)``, with ``--device cpu`` N shards on
+the CPU), as in the JAX package: the tiled fit and predict shard each
+batch's tiles over them.  More devices than are visible raise before any
+file is read.
 """
 from __future__ import annotations
 
@@ -160,32 +163,31 @@ def add_device_argument(p):
                         "kernels' plain PyTorch versions on the CPU")
 
 
-def _mesh(args):
-    """The whole-slide mesh of ``--distributed-*``, or None without them
-    (the tiled paths run on one device).  Raises, before any file is
-    read, for ``--devices`` above 1 on the tiled paths (tile data
-    parallelism is not ported) and for more cards than are visible."""
+def _meshes(args):
+    """``(tile_mesh, whole_slide_mesh)``: the trainer's mesh of
+    ``--devices`` N devices for tile data parallelism (None for one
+    device), and the whole-slide mesh of ``--distributed-*`` (None
+    without them), as the JAX package builds them.  Raises, before any
+    file is read, for more cards than are visible."""
     import torch
 
-    from ..parallel.mesh import UNPORTED, make_grid_mesh, make_mesh
+    from ..parallel.mesh import make_grid_mesh, make_mesh
     from ..train.trainer import resolve_device
 
     device = resolve_device(args.device)
     cuda = device.type == "cuda"
     # --devices 0 means every device, as in the JAX package
     n_dev = args.devices or (torch.cuda.device_count() if cuda else 1)
+    tile_mesh = make_mesh(n_dev, None if cuda else [device] * n_dev) \
+        if n_dev > 1 else None
     if not (args.distributed_train or args.distributed_predict):
-        if n_dev > 1:
-            raise NotImplementedError(
-                f"--devices {args.devices} ({n_dev} devices) without "
-                "--distributed-train / --distributed-predict: tile data "
-                "parallelism is not ported to segger_tpu_torch yet: "
-                f"{UNPORTED}; pass --devices 1")
-        return None
+        return tile_mesh, None
     if args.grid:
         dx, dy = (int(v) for v in args.grid.lower().split("x"))
-        return make_grid_mesh(dx, dy, None if cuda else [device] * (dx * dy))
-    return make_mesh(n_dev, None if cuda else [device] * n_dev)
+        return tile_mesh, make_grid_mesh(
+            dx, dy, None if cuda else [device] * (dx * dy))
+    return tile_mesh, tile_mesh or make_mesh(
+        n_dev, None if cuda else [device] * n_dev)
 
 
 def run_segment(args) -> int:
@@ -195,7 +197,7 @@ def run_segment(args) -> int:
     save-graph, or load-graph in their place; fit, predict, write), its
     pipeline (None when the graph came from the cache), its graph and its
     trainer."""
-    mesh = None if args.prepare_only else _mesh(args)
+    tile_mesh, mesh = (None, None) if args.prepare_only else _meshes(args)
 
     import numpy as np
 
@@ -275,7 +277,8 @@ def run_segment(args) -> int:
         return 0
 
     trainer = SeggerTrainer(
-        graph, TrainConfig(**train_kwargs), device=args.device
+        graph, TrainConfig(**train_kwargs), device=args.device,
+        mesh=tile_mesh,
     )
     run_segment.last_run["trainer"] = trainer
     grid = mesh.dims if mesh is not None and args.grid else None

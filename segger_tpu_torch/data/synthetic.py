@@ -6,7 +6,8 @@ boundaries, transcripts scattered around cell centers, plus background
 noise transcripts, in the standard schema
 (reference schema: src/segger/io/fields.py:104-124).  The same stream as
 ``segger_tpu.data.synthetic.make_synthetic``: one seed gives one slide in
-both packages.  ``write_xenium_like``, ``write_merscope_like`` and
+both packages (the port's also returns each cell's expression program,
+``cell_type``).  ``write_xenium_like``, ``write_merscope_like`` and
 ``write_synthetic_dataset`` write a slide as a raw Xenium v2 or MERSCOPE
 directory or as a standardized one, byte for byte as the JAX package's
 writers do.  ``make_synthetic_columnar`` streams the same generative
@@ -19,6 +20,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Optional
+
 import numpy as np
 import pandas as pd
 
@@ -32,6 +35,8 @@ class SyntheticData:
     polygons: dict                 # (cell_id, boundary_type) -> (V,2) array
     truth_cell: np.ndarray         # ground-truth cell id per transcript
                                    # ('' for background)
+    cell_type: Optional[np.ndarray] = None  # expression program of each
+                                            # cell, in cell-id order
 
 
 def _circle(center, radius, n=24, rng=None, wobble=0.15):
@@ -154,7 +159,8 @@ def make_synthetic(
         brows, columns=[bd_f.id, bd_f.boundary_type, bd_f.contains_nucleus]
     )
     return SyntheticData(
-        transcripts=tx, boundaries=bd, polygons=polys, truth_cell=truth
+        transcripts=tx, boundaries=bd, polygons=polys, truth_cell=truth,
+        cell_type=types,
     )
 
 

@@ -18,7 +18,9 @@ from torch import nn
 
 def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """Nested dict of arrays (flax layout, with or without the top-level
-    'params' collection) -> ``state_dict`` of the port's ``ISTEncoder``."""
+    'params' collection) -> ``state_dict`` of the port's ``ISTEncoder``
+    (or of any module named as the flax tree: a ``GATv2Conv`` with
+    ``share_weights=True`` has no ``lin_r`` in either)."""
     tree = params["params"] if "params" in params else params
     out: Dict[str, torch.Tensor] = {}
 

@@ -1,7 +1,8 @@
 """GATv2 convolution over padded-CSR adjacency, with attention dropout.
 
-Math of PyG's ``GATv2Conv`` with ``share_weights=False``,
-``concat=True``, ``negative_slope=0.2``:
+Math of PyG's ``GATv2Conv`` with ``concat=True``,
+``negative_slope=0.2`` (``share_weights=True`` makes ``W_r, b_r`` the
+same parameters as ``W_l, b_l``, as the JAX package's ``lin_r = lin_l``):
 
     x_l = W_l x_src + b_l                        (per source node)
     x_r = W_r x_dst + b_r                        (per destination node)
@@ -100,21 +101,31 @@ class GATv2Conv(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, heads: int = 1,
                  negative_slope: float = 0.2, dropout: float = 0.0,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 share_weights: bool = False):
         super().__init__()
         hc = heads * out_channels
         self.heads, self.out_channels = heads, out_channels
         self.negative_slope = negative_slope
         self.dropout = dropout
         self.dtype = dtype
+        self.share_weights = share_weights
         self.lin_l = nn.Linear(in_channels, hc)
-        self.lin_r = nn.Linear(in_channels, hc)
+        # with shared weights there is no lin_r parameter (the flax tree
+        # has none): the destination side reads lin_l
+        if not share_weights:
+            self.lin_r = nn.Linear(in_channels, hc)
         self.att = nn.Parameter(torch.empty(1, heads, out_channels))
         self.bias = nn.Parameter(torch.empty(hc))
 
+    @property
+    def lin_dst(self) -> nn.Linear:
+        """The destination side's projection."""
+        return self.lin_l if self.share_weights else self.lin_r
+
     def reset_parameters(self, generator: torch.Generator) -> None:
         """flax init: glorot-uniform kernels and ``att``, zero biases."""
-        for lin in (self.lin_l, self.lin_r):
+        for lin in dict.fromkeys((self.lin_l, self.lin_dst)):
             glorot_uniform_(lin.weight, lin.in_features, lin.out_features,
                             generator)
             nn.init.zeros_(lin.bias)
@@ -144,7 +155,7 @@ class GATv2Conv(nn.Module):
             xl = torch.cat([dense(self.lin_l, p, self.dtype) for p in x_src])
         else:
             xl = dense(self.lin_l, x_src, self.dtype)
-        xr = dense(self.lin_r, x_dst, self.dtype)
+        xr = dense(self.lin_dst, x_dst, self.dtype)
         att = self.att[0].to(xl.dtype)
         dropout_on = self.dropout > 0.0 and not deterministic
         if dropout_on and seeds is None:

@@ -1,23 +1,33 @@
-"""Device meshes for the halo-exchange whole-slide paths.
+"""Device meshes: tile data parallelism and the halo-exchange whole-slide
+paths.
 
 The port's counterpart of ``segger_tpu/parallel/mesh.py`` for one
-process driving every shard, as ``jax.shard_map`` over a single-host
-mesh does.  A :class:`Mesh` is a list of devices, one per shard, and the
-axis shape: ``("data",)`` for strips, ``("x", "y")`` for the grid.  A
-device may appear more than once: several shards then share it, the
-counterpart of the JAX package's forced host devices.
+process driving every shard, as ``jax.shard_map`` and a sharded
+``jax.jit`` over a single-host mesh do.  A :class:`Mesh` is a list of
+devices, one per shard, and the axis shape: ``("data",)`` for strips and
+for the tile axis of a batch, ``("x", "y")`` for the grid.  A device may
+appear more than once: several shards then share it, the counterpart of
+the JAX package's forced host devices.
 
-Shards move between devices with explicit tensor indexing and ``.to()``
-(``parallel/halo.py``, ``parallel/grid.py``), and the parameters live
-once, on the model's device, which also holds the loss;
-:func:`replicate` makes the per-device copies inside the autograd
-graph, so the gradient of a loss summed over shards is the sum of their
-gradients, as JAX's ``psum`` forms it.  Several processes over ``torch.distributed``, and
-tile data parallelism (``SeggerTrainer(mesh=)`` for ``fit`` and
-``predict``), are not ported: ROADMAP.md Queue 1 item 9.
+Tile data parallelism (``SeggerTrainer(mesh=)`` for ``fit`` and
+``predict``): :func:`shard_tile_batch` splits a stacked batch's tile axis
+into one equal group per shard, as ``PartitionSpec("data")`` does, and
+:class:`Replicas` keeps one copy of the model per shard, its parameters
+views of one flat buffer, so that writing the updated parameters to a
+replica is one copy, and :func:`reduce_gradients` sums the shards' flat
+gradients on the model's device (XLA's gradient all-reduce).
+
+Whole slide: shards move between devices with explicit tensor indexing
+and ``.to()`` (``parallel/halo.py``, ``parallel/grid.py``), and the
+parameters live once, on the model's device, which also holds the loss;
+:func:`replicate` makes the per-device copies inside the autograd graph,
+so the gradient of a loss summed over shards is the sum of their
+gradients, as JAX's ``psum`` forms it.  Several processes over
+``torch.distributed`` are not ported: ROADMAP.md Queue 1 item 9.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -27,7 +37,8 @@ import torch
 
 from ..ops.padded_csr import as_tensor
 
-UNPORTED = "ROADMAP.md Queue 1 item 9 (multi-process parallel/)"
+UNPORTED = ("ROADMAP.md Queue 1 item 9 (several processes over "
+            "torch.distributed)")
 
 
 @dataclass(frozen=True)
@@ -93,7 +104,9 @@ def make_grid_mesh(dx: int, dy: int, devices: Optional[Sequence] = None
 def initialize_multihost(coordinator_address: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None) -> None:
-    """Several processes over ``torch.distributed`` are not ported."""
+    """Several processes over ``torch.distributed`` are not ported: one
+    process drives every shard of a :class:`Mesh`, for tile data
+    parallelism and the whole-slide paths alike."""
     raise NotImplementedError(
         f"initialize_multihost is not ported to segger_tpu_torch yet: "
         f"{UNPORTED}; one process drives every shard of a Mesh")
@@ -137,3 +150,73 @@ def fetch_global(per_shard: Sequence[Sequence[torch.Tensor]]
     shard axis leading (one process: every shard is addressable)."""
     return tuple(np.stack([t.detach().cpu().numpy() for t in outs])
                  for outs in zip(*per_shard))
+
+
+def shard_tile_batch(batch, mesh: Mesh) -> list:
+    """Group ``d`` of a stacked NumPy ``TileGraph``'s leading tile axis,
+    split into ``mesh.size`` equal groups, as tensors on
+    ``mesh.devices[d]`` (the JAX package's ``PartitionSpec("data")`` on
+    the tile axis)."""
+    n = batch.tx_gene.shape[0]
+    if n % mesh.size:
+        raise ValueError(f"{n} tiles do not split into {mesh.size} equal "
+                         "groups")
+    g = n // mesh.size
+    return [batch.map_arrays(
+        lambda a, d=d, dev=dev: as_tensor(np.asarray(a)[d * g:(d + 1) * g],
+                                          dev))
+        for d, dev in enumerate(mesh.devices)]
+
+
+def flat_parameters(module: torch.nn.Module) -> torch.Tensor:
+    """Every parameter of ``module``, flattened and concatenated in
+    ``parameters()`` order (a new tensor, outside autograd)."""
+    with torch.no_grad():
+        return torch.cat([p.reshape(-1) for p in module.parameters()])
+
+
+class Replicas:
+    """One copy of ``module`` per shard of ``mesh``, on the shard's
+    device, for tile data parallelism.  Shards that share a device get
+    copies of their own, so that no shard's graph reads another's
+    parameters.  Each copy's parameters are views of one flat float32
+    buffer (``flats[d]``), so :meth:`pull` writes a module's parameters
+    to a copy in one copy."""
+
+    def __init__(self, module: torch.nn.Module, mesh: Mesh):
+        self.modules: List[torch.nn.Module] = []
+        self.flats: List[torch.Tensor] = []
+        flat = flat_parameters(module)
+        for dev in mesh.devices:
+            rep = copy.deepcopy(module).to(dev)
+            buf = flat.to(dev, copy=True)
+            off = 0
+            for p in rep.parameters():
+                if p.dtype != torch.float32:
+                    raise TypeError(f"parameter of {p.dtype}: the replicas "
+                                    "hold float32 parameters")
+                p.grad = None
+                p.data = buf[off:off + p.numel()].view_as(p)
+                off += p.numel()
+            self.modules.append(rep)
+            self.flats.append(buf)
+
+    def pull(self, module: torch.nn.Module) -> None:
+        """Write ``module``'s parameters to every copy."""
+        flat = flat_parameters(module)
+        for buf in self.flats:
+            buf.copy_(flat, non_blocking=True)
+
+
+def reduce_gradients(flat_grads: Sequence[torch.Tensor],
+                     out: torch.Tensor) -> torch.Tensor:
+    """The sum of the shards' flat gradients into ``out`` on the model's
+    device (XLA's gradient all-reduce over the ``"data"`` axis), added
+    from the last shard to the first: the order in which autograd adds a
+    parameter's gradients from the tiles of a one-device step, last tile
+    first, so that with one tile a shard the sum is the one-device
+    gradient's, bit for bit where each tile's gradient is."""
+    out.copy_(flat_grads[-1])
+    for g in reversed(flat_grads[:-1]):
+        out.add_(g.to(out.device))
+    return out

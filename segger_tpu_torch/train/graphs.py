@@ -21,13 +21,31 @@ runs eagerly on the same inputs.
 - Every step of a trainer captures into one memory pool.  The steps run
   one at a time on one stream, and each keeps its output alive, so any
   order of replays is safe.
+
+Tile data parallelism (``SeggerTrainer(mesh=)``) cannot be one graph: a
+CUDA graph lives on one device, and the joint masked means of a step
+need the loss counts of every shard before any shard's backward.  A
+shard's train step is a :class:`SplitStep`, the pattern of
+``torch.cuda.make_graphed_callables``: a captured forward that returns
+the shard's ``(sum, count)`` loss statistics, and a captured backward
+that takes their gradient (the scales ``w_k / max(sum_d count_k, 1)``,
+formed once every shard has reported) and writes the shard's flat
+parameter gradient.  Each shard's graphs capture into a memory pool of
+their own, which no other shard's graphs use, and none of them replays
+between a forward and its backward, so the forward's saved tensors
+survive the other shards' replays until the backward reads them.  The
+reduction of the gradients, the copy of the parameters to the replicas
+and the loss row run eagerly between the graphs; the optimizer step is a
+:class:`CapturedCall`.  Every step enters its own device, so shards on
+several cards queue their work on each card's current stream.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -147,6 +165,42 @@ class StepInputs:
                                           self.sg_u, self.weights]
 
 
+def _on_device(device: torch.device):
+    """A context with ``device`` current when it is a CUDA device."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _warm_up(fn: Callable[[], object],
+             snapshot: Optional[Callable[[], Callable[[], None]]]) -> None:
+    """Run ``fn`` once on a side stream, as PyTorch's whole-network
+    capture does, then put back what ``snapshot`` saved."""
+    restore = snapshot() if snapshot is not None else None
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    if restore is not None:
+        restore()
+
+
+def _record(fn: Callable[[], object], pool) -> Tuple[torch.cuda.CUDAGraph,
+                                                     object, list]:
+    """Capture ``fn()`` into a graph on the current device: the graph, its
+    static output and the launches a replay makes (the counters are put
+    back).  The capture stream is made on the current device: PyTorch's
+    default one belongs to the device of the process's first capture."""
+    before = launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool, stream=torch.cuda.Stream()):
+        out = fn()
+    launches = _launch_delta(launch_counts(), before)
+    set_launch_counts(before)
+    return graph, out, launches
+
+
 class CompiledStep:
     """A step ``body(inputs) -> tensor`` at one input signature.
 
@@ -154,7 +208,8 @@ class CompiledStep:
     captured at the first :meth:`run`; ``snapshot()``, when given, is
     called before the warm-up and returns the function that puts back
     what the warm-up changed.  On the CPU the body runs eagerly on the
-    inputs, which are also what the host fills."""
+    inputs, which are also what the host fills.  Every method runs with
+    the inputs' device current."""
 
     def __init__(self, body: Callable[[StepInputs], torch.Tensor],
                  inputs: StepInputs, pool=None,
@@ -164,12 +219,14 @@ class CompiledStep:
         self.inputs = inputs
         self.pool = pool
         self.snapshot = snapshot
-        self.cuda = inputs.weights.device.type == "cuda"
+        self.device = inputs.flat.device
+        self.cuda = self.device.type == "cuda"
         self.slots = [(s, torch.cuda.Event()) for s in staging or []]
         self._slot = 0
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out: Optional[torch.Tensor] = None
         self.launches: Optional[list] = None   # a replay's, from capture
+        self.replays = 0
         self._host: Optional[torch.Tensor] = None
 
     def staging(self) -> StepInputs:
@@ -188,8 +245,9 @@ class CompiledStep:
         if not self.cuda:
             return
         slot, done = self.slots[self._slot]
-        self.inputs.flat.copy_(slot.flat, non_blocking=True)
-        done.record()
+        with _on_device(self.device):
+            self.inputs.flat.copy_(slot.flat, non_blocking=True)
+            done.record()
         self._slot ^= 1
 
     def run(self) -> torch.Tensor:
@@ -199,28 +257,18 @@ class CompiledStep:
         tensor, overwritten by the next replay."""
         if not self.cuda:
             return self.body(self.inputs)
-        if self.graph is None:
-            self._capture()
-        self.graph.replay()
+        with _on_device(self.device):
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
         add_launches(self.launches)
+        self.replays += 1
         return self.out
 
     def _capture(self) -> None:
-        restore = self.snapshot() if self.snapshot is not None else None
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self.body(self.inputs)                   # the warm-up
-        torch.cuda.current_stream().wait_stream(side)
-        if restore is not None:
-            restore()
-        before = launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool):
-            out = self.body(self.inputs)
-        self.launches = _launch_delta(launch_counts(), before)
-        set_launch_counts(before)
-        self.graph, self.out = graph, out
+        _warm_up(lambda: self.body(self.inputs), self.snapshot)
+        self.graph, self.out, self.launches = _record(
+            lambda: self.body(self.inputs), self.pool)
 
     def fetch(self, out: torch.Tensor) -> torch.Tensor:
         """``out`` on the host: on CUDA copied into the step's pinned
@@ -230,8 +278,100 @@ class CompiledStep:
         if self._host is None:
             self._host = torch.empty(out.shape, dtype=out.dtype,
                                      pin_memory=True)
-        self._host.copy_(out, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
+        with _on_device(self.device):
+            self._host.copy_(out, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
         done.synchronize()
         return self._host
+
+
+class SplitStep(CompiledStep):
+    """One shard's train step, split at its loss statistics.
+
+    :meth:`run` gives ``body(inputs)``, the shard's ``(sum, count)``
+    statistics (detached); :meth:`backward` takes their gradient and
+    gives the flat gradient of ``params`` (the ones the statistics reach,
+    in order: ``used`` marks them, the same on every shard).  On CUDA the
+    forward and the backward are two graphs in the step's own pool,
+    captured at the first :meth:`run` after one warm-up of both; the
+    gradient of the statistics is a static input the host fills before
+    the backward's replay.  On the CPU both run eagerly."""
+
+    def __init__(self, body: Callable[[StepInputs], torch.Tensor],
+                 inputs: StepInputs, params: List[torch.Tensor], n_stats: int,
+                 pool=None, staging: Optional[List[StepInputs]] = None):
+        super().__init__(body, inputs, pool, staging=staging)
+        self.params = list(params)
+        self.grad_out = torch.zeros(n_stats, device=self.device)
+        self.used: Optional[List[bool]] = None
+        self.bwd_graph: Optional[torch.cuda.CUDAGraph] = None
+        self.flat_grad: Optional[torch.Tensor] = None
+        self.bwd_launches: Optional[list] = None
+        self._stats: Optional[torch.Tensor] = None    # the CPU's, live
+
+    def _backward(self, stats: torch.Tensor) -> torch.Tensor:
+        grads = torch.autograd.grad(stats, self.params, self.grad_out,
+                                    allow_unused=True)
+        used = [g is not None for g in grads]
+        if self.used is None:
+            self.used = used
+        elif used != self.used:
+            raise RuntimeError("the statistics reach other parameters than "
+                               "at the step's first run")
+        return torch.cat([g.reshape(-1) for g in grads if g is not None])
+
+    def run(self) -> torch.Tensor:
+        out = super().run()
+        if not self.cuda:
+            self._stats = out
+        return out.detach()
+
+    def _capture(self) -> None:
+        _warm_up(lambda: self._backward(self.body(self.inputs)), None)
+        self.graph, self.out, self.launches = _record(
+            lambda: self.body(self.inputs), self.pool)
+        self.bwd_graph, self.flat_grad, self.bwd_launches = _record(
+            lambda: self._backward(self.out), self.pool)
+
+    def backward(self, grad: torch.Tensor) -> torch.Tensor:
+        """The flat gradient of the used parameters for the statistics'
+        gradient ``grad`` (any device), after the latest :meth:`run`.  The
+        CUDA result is the backward graph's static tensor."""
+        if not self.cuda:
+            self.grad_out.copy_(grad)
+            stats, self._stats = self._stats, None
+            return self._backward(stats)
+        with _on_device(self.device):
+            self.grad_out.copy_(grad, non_blocking=True)
+            self.bwd_graph.replay()
+        add_launches(self.bwd_launches)
+        return self.flat_grad
+
+
+class CapturedCall:
+    """``fn()`` with no inputs but the tensors it closes over: on CUDA a
+    graph captured at the first call on ``device`` (after a warm-up whose
+    changes ``snapshot`` puts back) and replayed after; on the CPU ``fn``
+    run eagerly."""
+
+    def __init__(self, fn: Callable[[], object], device: torch.device,
+                 pool=None,
+                 snapshot: Optional[Callable[[], Callable[[], None]]] = None):
+        self.fn = fn
+        self.device = device
+        self.pool = pool
+        self.snapshot = snapshot
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.launches: Optional[list] = None
+
+    def __call__(self) -> None:
+        if self.device.type != "cuda":
+            self.fn()
+            return
+        with _on_device(self.device):
+            if self.graph is None:
+                _warm_up(self.fn, self.snapshot)
+                self.graph, _, self.launches = _record(self.fn, self.pool)
+            self.graph.replay()
+        add_launches(self.launches)

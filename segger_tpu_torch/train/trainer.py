@@ -19,6 +19,20 @@ the step's inputs; on the CPU the same step body runs eagerly.  There is
 no eager path on CUDA: a capture or replay that fails raises.
 ``train_step`` and ``eval_step`` stay eager, for comparisons.
 
+With a mesh of several shards (``SeggerTrainer(mesh=)``), ``fit``,
+``predict`` and ``predict_streaming`` are tile data parallel, as the JAX
+package's sharded steps: each batch's tiles split into one equal group
+per shard, each shard runs its group on its own device through its own
+replica of the model and its own compiled steps, the loss is the joint
+masked means over the whole batch (the shards' ``(sum, count)``
+statistics summed, then divided), the shards' gradients are summed on the
+model's device for one Adam step, and the new parameters go back to the
+replicas.  The random numbers are drawn in the one-device order, tile by
+tile in global tile order, so a mesh step uses the draws of the one-device
+step at the same ``tiles_per_step``; predictions come back in global tile
+order.  The shard steps are split CUDA graphs (``graphs.SplitStep``):
+the reduction between them is eager.
+
 ``SeggerTrainer.predict_whole_slide`` and ``fit_whole_slide`` run the
 slide itself, sharded into strips or a grid over a mesh of devices with a
 per-layer halo exchange (``parallel/``): exact receptive fields, no
@@ -62,7 +76,10 @@ from ..ops.padded_csr import PaddedCSR
 from ..ops.postgather import seed_int32
 from ..utils_profiling import substage
 from .checkpoint import load_checkpoint, save_checkpoint
-from .graphs import CompiledStep, StepInputs, signature, tile_arrays
+from ..parallel.mesh import Replicas, reduce_gradients
+from .graphs import (
+    CapturedCall, CompiledStep, SplitStep, StepInputs, signature, tile_arrays,
+)
 from .prefetch import PrefetchIterator
 
 logger = logging.getLogger(__name__)
@@ -131,13 +148,20 @@ class SeggerTrainer:
         device=None,
         mesh=None,
     ):
-        """``mesh`` (``parallel.mesh.Mesh``) is the whole-slide paths'
-        default mesh.  Tile data parallelism over it (``fit`` and
-        ``predict`` on a mesh of several shards, the JAX package's
-        ``SeggerTrainer(mesh=)``) is not ported and raises."""
+        """``mesh`` (``parallel.mesh.Mesh``): with several shards ``fit``,
+        ``predict`` and ``predict_streaming`` shard each batch's tiles over
+        it (tile data parallelism); it is also the whole-slide paths'
+        default mesh.  With a mesh, ``tiles_per_step`` becomes a multiple
+        of its size on a copy of ``config``, as in the JAX package; the
+        caller's config is never changed."""
         self.graph = graph
         self.mesh = mesh
-        self.cfg = TrainConfig() if config is None else config
+        config = TrainConfig() if config is None else config
+        if mesh is not None and config.tiles_per_step % mesh.size:
+            config = dataclasses.replace(
+                config, tiles_per_step=mesh.size * max(
+                    1, config.tiles_per_step // mesh.size))
+        self.cfg = config
         self.device = resolve_device(device)
         self.dtype = (
             torch.bfloat16 if self.cfg.compute_dtype == "bfloat16" else None
@@ -181,6 +205,14 @@ class SeggerTrainer:
         self._steps: Dict[tuple, CompiledStep] = {}
         self._pool = None
         self.captures = dict.fromkeys(("train", "eval", "predict"), 0)
+        # tile data parallelism: the replicas, each shard's memory pool,
+        # the similarity tables by device, the model's flat gradient and
+        # the optimizer step (made at first use)
+        self._replicas: Optional[Replicas] = None
+        self._shard_pools: List = []
+        self._sims: Dict[torch.device, tuple] = {}
+        self._grad_flat: Optional[torch.Tensor] = None
+        self._adam: Optional[CapturedCall] = None
 
     # ------------------------------------------------------------------
     def init(self) -> None:
@@ -230,21 +262,21 @@ class SeggerTrainer:
             params, lr=self.cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
             capturable=cuda, fused=cuda or None)
 
-    def _refuse_tile_dp(self) -> None:
-        if self.mesh is not None and self.mesh.size > 1:
-            from ..parallel.mesh import UNPORTED
-
-            raise NotImplementedError(
-                f"tile data parallelism over a mesh of {self.mesh.size} "
-                f"shards (fit / predict) is not ported to segger_tpu_torch "
-                f"yet: {UNPORTED}; predict_whole_slide and fit_whole_slide "
-                "run on the mesh")
+    @property
+    def tile_dp(self) -> bool:
+        """``fit`` and ``predict`` shard their batches over the mesh."""
+        return self.mesh is not None and self.mesh.size > 1
 
     def _drop_steps(self) -> None:
-        """Forget the compiled steps: they hold the addresses of the
-        parameters and the optimizer state they were captured with."""
+        """Forget the compiled steps and the replicas: they hold the
+        addresses of the parameters and the optimizer state they were
+        captured with."""
         self._steps = {}
         self._pool = None
+        self._replicas = None
+        self._shard_pools = []
+        self._grad_flat = None
+        self._adam = None
 
     # ------------------------------------------------------------------
     def _batch_plans(
@@ -362,26 +394,29 @@ class SeggerTrainer:
                       cfg.sg_weight_end]),
         )
 
-    def _joint_loss(self, batch: TileGraph, seeds, randoms, w):
-        """The step loss over a device batch and its three parts: each
-        tile's forward (dropout on when ``seeds`` yields its launches'
-        words), then its loss statistics from ``randoms(b, tile)``; the
-        per-tile ``(sum, count)`` statistics are summed before the masked
-        means, as the JAX package's joint means, and weighted by ``w``."""
+    def _tile_stats(self, model, sims, batch: TileGraph, seeds, randoms):
+        """The ``(sum, count)`` loss statistics of a device batch, summed
+        over its tiles: each tile's forward through ``model`` (dropout on
+        when ``seeds`` yields its launches' words), then its statistics
+        from ``randoms(b, tile)`` against the similarity tables ``sims``."""
         stats = []
         for b in range(batch.tx_gene.shape[0]):
             tile = batch.map_arrays(lambda a: a[b])
-            emb = self.model(tile, deterministic=seeds is None, seeds=seeds)
+            emb = model(tile, deterministic=seeds is None, seeds=seeds)
             stats.append(L.loss_stats(
-                randoms(b, tile), emb, tile,
-                self.tx_similarity, self.bd_similarity,
+                randoms(b, tile), emb, tile, *sims,
                 tx_margin=self.cfg.tx_margin, sg_margin=self.cfg.sg_margin,
                 sg_loss_type=self.cfg.sg_loss_type, use_interior=True,
             ))
-        tot = torch.stack(stats).sum(dim=0)
-        parts = tot[0::2] / tot[1::2].clamp(min=1.0)
-        loss = w[0] * parts[0] + w[1] * parts[1] + w[2] * parts[2]
-        return loss, parts
+        return torch.stack(stats).sum(dim=0)
+
+    def _joint_loss(self, batch: TileGraph, seeds, randoms, w):
+        """The step loss over a device batch and its three parts: the
+        per-tile ``(sum, count)`` statistics are summed before the masked
+        means, as the JAX package's joint means, and weighted by ``w``."""
+        return _combine(self._tile_stats(
+            self.model, (self.tx_similarity, self.bd_similarity), batch,
+            seeds, randoms), w)
 
     def _loss(self, batch: TileGraph, gen: torch.Generator,
               weights: np.ndarray, deterministic: bool):
@@ -411,17 +446,22 @@ class SeggerTrainer:
 
     # ------------------------------------------------------------------
     # compiled steps: bodies that read only their StepInputs
-    def _loss_from(self, inp: StepInputs, train: bool):
+    def _stats_from(self, inp: StepInputs, train: bool, model, sims):
+        """:meth:`_tile_stats` on the step inputs."""
         seeds = BufferSeedSource(inp.seeds) if train else None
-        loss, parts = self._joint_loss(
-            inp.batch, seeds,
+        stats = self._tile_stats(
+            model, sims, inp.batch, seeds,
             lambda b, tile: L.loss_randoms(tile, inp.tx_u[b], inp.bd_u[b],
-                                           inp.sg_u[b]),
-            inp.weights)
+                                           inp.sg_u[b]))
         if seeds is not None and seeds.used != inp.seeds.shape[0]:
             raise RuntimeError(f"the step used {seeds.used} of its "
                                f"{inp.seeds.shape[0]} seed pairs")
-        return loss, parts
+        return stats
+
+    def _loss_from(self, inp: StepInputs, train: bool):
+        return _combine(self._stats_from(
+            inp, train, self.model, (self.tx_similarity, self.bd_similarity)),
+            inp.weights)
 
     def _train_body(self, inp: StepInputs) -> torch.Tensor:
         """:meth:`train_step` on the step inputs: the loss row
@@ -438,16 +478,18 @@ class SeggerTrainer:
             loss, parts = self._loss_from(inp, train=False)
         return torch.cat([loss[None], parts])
 
-    def _predict_body(self, inp: StepInputs) -> torch.Tensor:
+    def _predict_body(self, inp: StepInputs, model=None) -> torch.Tensor:
         """Per tile, ``(tx_index, cell_encoding, similarity, gene,
         interior mask)`` over every row, as the JAX package's
         ``predict_step`` returns them, in one ``(B, 5, n_tx)`` int32
-        tensor (the similarity's float32 bits) for one copy back."""
+        tensor (the similarity's float32 bits) for one copy back; through
+        ``model`` (the trainer's by default)."""
+        model = self.model if model is None else model
         rows = []
         with torch.no_grad():
             for b in range(inp.batch.tx_gene.shape[0]):
                 tile = inp.batch.map_arrays(lambda a: a[b])
-                emb = self.model(tile)
+                emb = model(tile)
                 max_sim, seg = score_candidates(
                     emb["tx"], emb["bd"], tile.cand, tile.bd_index,
                     dtype=self.dtype,
@@ -508,38 +550,183 @@ class SeggerTrainer:
         self._steps[key] = step
         return step
 
-    def _stage(self, step: CompiledStep, batch: TileGraph,
+    # ------------------------------------------------------------------
+    # tile data parallelism: one step per shard on its own device
+    def _tile_dp_setup(self) -> None:
+        """The replicas (made at first use, after any change of the
+        parameters' tensors) with the model's current parameters."""
+        if self._replicas is None:
+            self._replicas = Replicas(self.model, self.mesh)
+            self._shard_pools = [
+                torch.cuda.graph_pool_handle() if dev.type == "cuda"
+                else None for dev in self.mesh.devices]
+        else:
+            self._replicas.pull(self.model)
+
+    def _sims_on(self, device: torch.device) -> tuple:
+        """The similarity tables on ``device``."""
+        if device not in self._sims:
+            self._sims[device] = (self.tx_similarity.to(device),
+                                  self.bd_similarity.to(device))
+        return self._sims[device]
+
+    def _shard_steps(self, kind: str, batch: TileGraph) -> List:
+        """Each shard's step of ``kind`` for a NumPy batch: shard ``d``
+        runs the ``d``-th equal group of its tiles on ``mesh.devices[d]``
+        through its replica, a :class:`~.graphs.SplitStep` for "train"
+        and a :class:`~.graphs.CompiledStep` otherwise, made at first
+        use with the shard's own inputs, staging and memory pool."""
+        n = self.mesh.size
+        g = batch.tx_gene.shape[0] // n
+        group = batch.map_arrays(lambda a: a[:g])
+        sig = signature(group)
+        n_seeds = self.model.seed_launches(group) * g if kind == "train" \
+            else 0
+        reps = self._replicas
+        steps = []
+        for d, dev in enumerate(self.mesh.devices):
+            key = (kind, sig, d)
+            step = self._steps.get(key)
+            if step is None:
+                cuda = dev.type == "cuda"
+                model, sims = reps.modules[d], self._sims_on(dev)
+
+                def inputs(device, pin=False):
+                    return StepInputs.like(group, n_seeds, device,
+                                           losses=kind != "predict", pin=pin)
+
+                staging = [inputs("cpu", pin=True) for _ in range(2)] \
+                    if cuda else None
+                pool = self._shard_pools[d]
+                if kind == "train":
+                    step = SplitStep(
+                        lambda inp, m=model, s=sims: self._stats_from(
+                            inp, True, m, s),
+                        inputs(dev), [p for p in model.parameters()
+                                      if p.requires_grad],
+                        n_stats=6, pool=pool, staging=staging)
+                elif kind == "eval":
+                    step = CompiledStep(
+                        lambda inp, m=model, s=sims: self._eval_stats(
+                            inp, m, s), inputs(dev), pool, staging=staging)
+                else:
+                    step = CompiledStep(
+                        lambda inp, m=model: self._predict_body(inp, m),
+                        inputs(dev), pool, staging=staging)
+                self._steps[key] = step
+            steps.append(step)
+        return steps
+
+    def _eval_stats(self, inp: StepInputs, model, sims) -> torch.Tensor:
+        with torch.no_grad():
+            return self._stats_from(inp, False, model, sims)
+
+    def _optimizer_step(self, flat_grads: List[torch.Tensor],
+                        used: List[bool]) -> None:
+        """The shards' flat gradients (of the trainable parameters that
+        ``used`` marks) summed into the model's gradients, then one Adam
+        step on the model's device (captured on CUDA, as the one-device
+        train step captures it)."""
+        params = [p for p in self.model.parameters() if p.requires_grad]
+        if self._grad_flat is None:
+            n = sum(p.numel() for p, u in zip(params, used) if u)
+            self._grad_flat = torch.zeros(n, device=self.device)
+            cuda = self.device.type == "cuda"
+            if cuda and self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            self._adam = CapturedCall(self.optimizer.step, self.device,
+                                      self._pool, snapshot=self._train_state)
+        off = 0
+        for p, u in zip(params, used):
+            # a parameter no shard's statistics reach keeps no gradient,
+            # and Adam skips it, as on one device
+            if u:
+                p.grad = self._grad_flat[off:off + p.numel()].view_as(p)
+                off += p.numel()
+            else:
+                p.grad = None
+        reduce_gradients(flat_grads, self._grad_flat)
+        self._adam()
+
+    def _tile_dp_row(self, kind: str, batch: TileGraph,
+                     gen: Optional[torch.Generator],
+                     weights: Optional[np.ndarray]) -> torch.Tensor:
+        """One step of ``kind`` over the mesh: every shard's forward, the
+        statistics summed on the model's device into the joint means; for
+        "train" every shard's backward from the scales ``w_k / max(count_k,
+        1)``, the gradients summed, one Adam step and the parameters back
+        to the replicas.  Returns the loss row (train, eval) on the
+        model's device, or the ``(B, 5, n_tx)`` predict rows on the host
+        in global tile order."""
+        steps = self._shard_steps(kind, batch)
+        self._stage(steps, batch, gen, weights)
+        outs = [self._run(kind, s) for s in steps]
+        if kind == "predict":
+            out = torch.cat([s.fetch(o) for s, o in zip(steps, outs)])
+            self.bytes_to_host += out.nbytes
+            return out
+        tot = torch.stack([o.to(self.device) for o in outs]).sum(dim=0)
+        w = torch.from_numpy(weights).to(self.device)
+        loss, parts = _combine(tot, w)
+        if kind == "train":
+            # d loss / d sum_k, as autograd forms it on one device; the
+            # counts carry no gradient
+            scale = torch.zeros_like(tot)
+            scale[0::2] = w / tot[1::2].clamp(min=1.0)
+            flats = [s.backward(scale) for s in steps]
+            self._optimizer_step(flats, steps[0].used)
+            self._replicas.pull(self.model)
+        return torch.cat([loss[None], parts])
+
+    def _stage(self, steps, batch: TileGraph,
                gen: Optional[torch.Generator] = None,
                weights: Optional[np.ndarray] = None) -> None:
-        """Fill the step's inputs with a NumPy batch and, for a loss
+        """Fill the steps' inputs with a NumPy batch and, for a loss
         step, the random numbers ``gen`` gives in the eager step's order:
         per tile its launches' seed words (train steps), then its loss
-        uniforms; then the weights."""
-        inp = step.staging()
-        for dst, src in zip(tile_arrays(inp.batch), tile_arrays(batch)):
-            dst.copy_(torch.from_numpy(src))
+        uniforms; then the weights.  ``steps`` is one step, or one per
+        shard, shard ``d`` taking the ``d``-th equal group of tiles; the
+        draws go tile by tile in global tile order either way."""
+        steps = steps if isinstance(steps, list) else [steps]
+        inps = [s.staging() for s in steps]
+        g = batch.tx_gene.shape[0] // len(steps)
+        for d, inp in enumerate(inps):
+            for dst, src in zip(tile_arrays(inp.batch), tile_arrays(batch)):
+                dst.copy_(torch.from_numpy(src[d * g:(d + 1) * g]))
         if gen is not None:
-            n_tiles = inp.tx_u.shape[0]
-            per_tile = inp.seeds.shape[0] // n_tiles
+            per_tile = inps[0].seeds.shape[0] // g
             draw = torch_seed_source(gen)
-            words = []
-            for b in range(n_tiles):
-                words += [seed_int32(draw()) for _ in range(per_tile)]
-                for dst, u in zip((inp.tx_u[b], inp.bd_u[b], inp.sg_u[b]),
+            words = [[] for _ in inps]
+            for b in range(batch.tx_gene.shape[0]):
+                d, t = divmod(b, g)
+                inp = inps[d]
+                words[d] += [seed_int32(draw()) for _ in range(per_tile)]
+                for dst, u in zip((inp.tx_u[t], inp.bd_u[t], inp.sg_u[t]),
                                   L.draw_loss_uniforms(
                                       inp.tx_u.shape[2], inp.bd_u.shape[2],
                                       inp.sg_u.shape[1], gen)):
                     dst.copy_(u)
-            if words:
-                inp.seeds.copy_(torch.tensor(words, dtype=torch.int32))
-            inp.weights.copy_(torch.from_numpy(weights))
-        step.upload()
-        self.bytes_to_device += sum(t.nbytes for t in inp.tensors())
+            for inp, ws in zip(inps, words):
+                if ws:
+                    inp.seeds.copy_(torch.tensor(ws, dtype=torch.int32))
+                inp.weights.copy_(torch.from_numpy(weights))
+        for s, inp in zip(steps, inps):
+            s.upload()
+            self.bytes_to_device += sum(t.nbytes for t in inp.tensors())
 
     def _run(self, kind: str, step: CompiledStep) -> torch.Tensor:
         if step.cuda and step.graph is None:
             self.captures[kind] += 1
         return step.run()
+
+    def _loss_row(self, kind: str, batch: TileGraph, gen: torch.Generator,
+                  weights: np.ndarray) -> torch.Tensor:
+        """One train or eval step on a NumPy batch: its loss row."""
+        if self.tile_dp:
+            return self._tile_dp_row(kind, batch, gen, weights)
+        step = self._step(kind, batch)
+        self._stage(step, batch, gen, weights)
+        return self._run(kind, step)
 
     def _loss_pass(self, kind: str, plans, gen: torch.Generator,
                    weights: np.ndarray, cache: bool, depth: int,
@@ -564,15 +751,38 @@ class SeggerTrainer:
                 plans, lambda p: self._build_batch(p, cache)) as batches:
             for batch in batches:
                 t0 = time.perf_counter()
-                step = self._step(kind, batch)
-                self._stage(step, batch, gen, weights)
-                buf[len(arrived)].copy_(self._run(kind, step))
+                buf[len(arrived)].copy_(
+                    self._loss_row(kind, batch, gen, weights))
                 arrived.append(t0)
                 if len(arrived) == depth:
                     read_back()
         if arrived:
             read_back()
         return rows
+
+    def iter_batches(self, tiles: Sequence[TileSpec], shuffle: bool,
+                     rng: Optional[np.random.Generator] = None,
+                     prefetch: int = 2, cache: bool = True,
+                     use_xlo: bool = False) -> PrefetchIterator:
+        """Stacked NumPy batches of ``tiles``' plans, built ``prefetch``
+        ahead on a background thread (the JAX package's
+        ``iter_batches``): shuffled bucketed packing from ``rng`` when
+        ``shuffle``, with the extra-low degree segment when ``use_xlo``,
+        extracted through the tile cache (``cache=False`` inserts
+        nothing)."""
+        plans = self._batch_plans(tiles, use_xlo=use_xlo, shuffle=shuffle,
+                                  rng=rng)
+        return PrefetchIterator(plans, lambda p: self._build_batch(p, cache),
+                                depth=prefetch)
+
+    def make_batches(self, tiles: Sequence[TileSpec], shuffle: bool,
+                     rng: Optional[np.random.Generator] = None,
+                     cache: bool = False) -> List[TileGraph]:
+        """Every batch of ``tiles``' plans, built now (small runs and
+        templates).  The caller holds them, so by default their
+        extractions do not go into the tile cache."""
+        return [self._build_batch(p, cache) for p in
+                self._batch_plans(tiles, shuffle=shuffle, rng=rng)]
 
     def fit(
         self,
@@ -591,7 +801,6 @@ class SeggerTrainer:
         ``on_epoch_end(epoch, trainer)`` runs after each record.  With
         ``checkpoint_dir``, ``latest.npz`` is resumed from at the epoch
         after its own and written every ``checkpoint_every`` epochs."""
-        self._refuse_tile_dp()
         cfg = self.cfg
         max_epochs = cfg.max_epochs if max_epochs is None else max_epochs
         train_tiles, val_tiles = self.split_tiles(fit_tiles)
@@ -608,6 +817,8 @@ class SeggerTrainer:
             self._drop_steps()      # the optimizer state is new tensors
             start_epoch = int(meta.get("extra", {}).get("epoch", -1)) + 1
             logger.info("resumed from epoch %d", start_epoch)
+        if self.tile_dp:
+            self._tile_dp_setup()
 
         for epoch in range(start_epoch, max_epochs):
             weights = self.weights(epoch, max_epochs)
@@ -641,18 +852,21 @@ class SeggerTrainer:
         tensor, and the host applies the mask."""
         if not self.initialized:
             raise RuntimeError("call init() or load_params() first")
-        self._refuse_tile_dp()
         self.release_tile_cache()
-        plans = self._batch_plans(predict_tiles, use_xlo=True)
-        with PrefetchIterator(
-                plans, lambda p: self._build_batch(p, cache=False)
-        ) as batches:
+        if self.tile_dp:
+            self._tile_dp_setup()
+        with self.iter_batches(predict_tiles, shuffle=False, cache=False,
+                               use_xlo=True) as batches:
             for batch in batches:
-                step = self._step("predict", batch)
-                self._stage(step, batch)
-                out = step.fetch(self._run("predict", step))
-                self.bytes_to_host += out.nbytes
-                a = out.numpy()
+                if self.tile_dp:
+                    a = self._tile_dp_row("predict", batch, None,
+                                          None).numpy()
+                else:
+                    step = self._step("predict", batch)
+                    self._stage(step, batch)
+                    out = step.fetch(self._run("predict", step))
+                    self.bytes_to_host += out.nbytes
+                    a = out.numpy()
                 m = a[:, 4].ravel() != 0
                 yield (a[:, 0].ravel()[m], a[:, 1].ravel()[m],
                        a[:, 2].ravel().view(np.float32)[m],
@@ -818,6 +1032,14 @@ class SeggerTrainer:
             logger.info("whole-slide epoch %d: loss=%.4f", epoch, row[0])
         self.history = history
         return history
+
+
+def _combine(tot: torch.Tensor, w: torch.Tensor):
+    """The step loss and its three parts from the summed ``(sum, count)``
+    statistics: the masked means, weighted by ``w``."""
+    parts = tot[0::2] / tot[1::2].clamp(min=1.0)
+    loss = w[0] * parts[0] + w[1] * parts[1] + w[2] * parts[2]
+    return loss, parts
 
 
 def _means(prefix: str, rows: List[List[float]]) -> Dict[str, float]:

@@ -5,8 +5,8 @@ on the same frames, its checkpoint in the JAX package's
 ``load_checkpoint``, ``export`` against the JAX package's ``export`` on
 the same segmentation directory, the boundary pool on fork and spawn,
 the debug commands, the whole-slide paths (``--distributed-predict
---distributed-train [--grid]``) and the option that is not ported yet
-(``--devices`` above 1 without them)."""
+--distributed-train [--grid]``) and ``--devices`` above the cards
+visible."""
 import argparse
 import dataclasses
 import subprocess
@@ -314,19 +314,23 @@ def test_debug_predict_only(dataset, segmented, tmp_path):
 
 
 UNPORTED = {
-    "--devices": (["2"], "Queue 1 item 9"),
+    "--devices": (["2"], "2 shards need 2 devices"),
 }
 
 
 @pytest.mark.parametrize("option", list(UNPORTED))
-def test_unported_option_raises_before_reading(option, tmp_path):
-    """Each option whose modules come later raises, naming its ROADMAP.md
-    item, before the input is read (the input does not exist) and before
-    anything is written."""
-    values, item = UNPORTED[option]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+def test_unported_option_raises_before_reading(option, tmp_path,
+                                               monkeypatch):
+    """An option the machine cannot honour raises before the input is
+    read (the input does not exist) and before anything is written:
+    ``--devices`` above the cards visible (one card here).  Tile data
+    parallelism itself is ported (``tests/test_torch_port_tile_dp.py``)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    values, message = UNPORTED[option]
+    with pytest.raises(ValueError, match=message):
         main(["segment", "-i", str(tmp_path / "missing"), "-o",
-              str(tmp_path / "out"), "--device", "cpu", option, *values])
+              str(tmp_path / "out"), option, *values])
     assert not list(tmp_path.iterdir())
 
 

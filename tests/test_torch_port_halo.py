@@ -444,6 +444,9 @@ def test_predict_backward_without_transposes_raises(graphs, models):
 
 
 def test_multihost_and_tile_dp_are_refused(graphs):
+    """Several processes are still refused, naming their ROADMAP.md item;
+    tile data parallelism over a mesh of CPU shards is ported: the mesh
+    rounds ``tiles_per_step`` to its size, and an empty predict runs."""
     from segger_tpu_torch.parallel.mesh import initialize_multihost
 
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
@@ -452,10 +455,8 @@ def test_multihost_and_tile_dp_are_refused(graphs):
     tr = SeggerTrainer(tg, TrainConfig(**MODEL), device="cpu",
                        mesh=make_mesh(devices=["cpu"] * 2))
     tr.init()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tr.fit([], max_epochs=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tr.predict([])
+    assert tr.tile_dp and tr.cfg.tiles_per_step == 2
+    assert all(v.size == 0 for v in tr.predict([]).values())
 
 
 def test_shard_generators_differ_and_repeat(graphs):

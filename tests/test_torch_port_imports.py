@@ -6,7 +6,8 @@ table, the command line from a raw Xenium directory to the exported
 boundaries, the out-of-core path (columnar transcripts, the memmapped
 graph plane, ``segment --low-memory --graph-cache``, the native spatial
 core) and the whole-slide halo-exchange path run with all of them
-blocked."""
+blocked, the table's quality report and contamination QC
+(``metrics/``, ``validation/``) included."""
 import ast
 import subprocess
 import sys
@@ -92,6 +93,8 @@ _SCRIPT = textwrap.dedent("""
             train_kw=dict(hidden_channels=16, out_channels=16,
                           n_mid_layers=0))
     assert r["accuracy"] > 0.6 and r["n_tiles"][1] > 1
+    assert r["quality"]["report"]["ari"] > 0.5
+    assert r["quality"]["median_percent_contamination"] >= 0
     assert set(r["walls"]) == {{"make-data", "features", "graph", "tiling",
                                "fit", "predict", "write"}}
 
@@ -209,6 +212,15 @@ def test_port_builds_its_own_native_source():
     assert native.library_path().parent == ROOT / "build" / "native"
     for rel in ("native.py", "utils_profiling.py", "data/columnar.py"):
         assert ROOT / "segger_tpu_torch" / rel in PORT_FILES
+
+
+@pytest.mark.parametrize("rel", ["metrics/__init__.py", "metrics/segment.py",
+                                 "validation/__init__.py",
+                                 "validation/contamination.py"])
+def test_metrics_and_validation_are_checked(rel):
+    """The quality metrics and the contamination QC are among the files
+    whose imports are checked above (no JAX, no scikit-learn)."""
+    assert ROOT / "segger_tpu_torch" / rel in PORT_FILES
 
 
 def test_parallel_modules_are_checked():

@@ -423,3 +423,157 @@ def test_fit_without_device_raises_without_cuda(pipeline, fit_tiles):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         SeggerTrainer(pipeline[1], TrainConfig(**SMALL)).fit(fit_tiles[1])
+
+
+# ---------------------------------------------------------------------
+# the rest of the trainer's API: tests/test_train_extras.py's cases, the
+# batch iterators, the GATv2 conv with shared weights
+# ---------------------------------------------------------------------
+def test_mesh_sharded_fit(pipeline, fit_tiles):
+    """``tests/test_train_extras.py:31``: training with the stacked-tile
+    batch sharded over 4 devices (CPU shards) gives a finite loss."""
+    from segger_tpu_torch.parallel.mesh import make_mesh
+
+    tr = SeggerTrainer(pipeline[1], TrainConfig(**dict(SMALL, max_epochs=1,
+                                                       tiles_per_step=4)),
+                       device="cpu", mesh=make_mesh(4, ["cpu"] * 4))
+    hist = tr.fit(fit_tiles[1], max_epochs=1)
+    assert np.isfinite(hist[0]["train:loss"])
+    assert tr.tile_dp and len(tr._replicas.modules) == 4
+
+
+def test_predict_path_releases_tile_cache(pipeline, fit_tiles, fitted):
+    """``tests/test_train_extras.py:145``: predict drops the fit's tile
+    cache up front and does not fill it again."""
+    assert fitted._tile_cache_bytes > 0
+    tg = pipeline[1]
+    specs = tpart.make_predict_tiles(
+        tg, tpart.build_tiling(tg, nodes_per_tile=600), margin=MARGIN)
+    out = fitted.predict(specs)
+    assert out["row_index"].size > 0
+    assert fitted._tile_cache_bytes == 0 and len(fitted._tile_cache) == 0
+
+
+def test_trainer_does_not_mutate_caller_config(pipeline):
+    """``tests/test_train_extras.py:205``: a mesh rounds
+    ``tiles_per_step`` on the trainer's copy of the config, never on the
+    caller's."""
+    from segger_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = TrainConfig(**dict(SMALL, tiles_per_step=1))
+    tr = SeggerTrainer(pipeline[1], cfg, device="cpu",
+                       mesh=make_mesh(4, ["cpu"] * 4))
+    assert cfg.tiles_per_step == 1
+    assert tr.cfg.tiles_per_step == 4
+    tr2 = SeggerTrainer(pipeline[1], device="cpu")
+    assert tr2.cfg.tiles_per_step == TrainConfig().tiles_per_step
+
+
+def test_fit_zero_epochs_runs_nothing(pipeline, fit_tiles):
+    """``tests/test_train_extras.py:219``."""
+    tr = SeggerTrainer(pipeline[1], TrainConfig(**SMALL), device="cpu")
+    assert tr.fit(fit_tiles[1], max_epochs=0) == []
+    assert tr.step_log == [] and tr.captures["train"] == 0
+
+
+def test_fit_on_epoch_end_callback(pipeline, fit_tiles):
+    """``tests/test_train_extras.py:230``: the callback fires once per
+    epoch with the live trainer."""
+    tr = SeggerTrainer(pipeline[1], TrainConfig(**dict(SMALL, max_epochs=3,
+                                                       scan_steps=1)),
+                       device="cpu")
+    seen = []
+
+    def cb(epoch, trainer):
+        assert trainer is tr and trainer.initialized
+        assert len(trainer.history) == epoch + 1
+        seen.append(epoch)
+
+    tr.fit(fit_tiles[1], on_epoch_end=cb)
+    assert seen == [0, 1, 2]
+
+
+def _assert_batches_equal(got, want):
+    assert len(got) == len(want) > 0
+    for t, j in zip(got, want):
+        j = port_tile(j)
+        for f in dataclasses.fields(t):
+            a, b = getattr(t, f.name), getattr(j, f.name)
+            if isinstance(a, tpart.PaddedCSR):
+                np.testing.assert_array_equal(a.idx, b.idx, err_msg=f.name)
+                np.testing.assert_array_equal(a.mask, b.mask, err_msg=f.name)
+            elif isinstance(a, np.ndarray):
+                np.testing.assert_array_equal(a, b, err_msg=f.name)
+            else:
+                assert a == b, f.name
+
+
+@pytest.mark.parametrize("shuffle", [False, True])
+def test_iter_and_make_batches_match_jax(pipeline, fit_tiles, shuffle):
+    """``iter_batches`` and ``make_batches`` build the JAX package's
+    batches from the same specs and packing rng; ``make_batches`` fills
+    no tile cache, ``iter_batches(cache=True)`` does."""
+    jg, tg = pipeline
+    jspecs, tspecs = fit_tiles
+    cfg = dict(MODEL, edges_per_batch=2000, tiles_per_step=2)
+    jtr = JTrainer(jg, JConfig(**cfg))
+    ttr = SeggerTrainer(tg, TrainConfig(**cfg), device="cpu")
+
+    def rng():
+        return np.random.default_rng([0, 1]) if shuffle else None
+
+    want = jtr.make_batches(jspecs, shuffle=shuffle, rng=rng())
+    _assert_batches_equal(ttr.make_batches(tspecs, shuffle=shuffle,
+                                           rng=rng()), want)
+    assert not ttr._tile_cache
+    with ttr.iter_batches(tspecs, shuffle=shuffle, rng=rng(),
+                          prefetch=1) as it:
+        got = list(it)
+    _assert_batches_equal(got, want)
+    assert ttr._tile_cache_bytes > 0
+    want = list(jtr.iter_batches(jspecs, shuffle=shuffle, rng=rng(),
+                                 use_xlo=True, cache=False))
+    with ttr.iter_batches(tspecs, shuffle=shuffle, rng=rng(),
+                          use_xlo=True, cache=False) as it:
+        _assert_batches_equal(list(it), want)
+
+
+def test_gatv2_shared_weights_match_jax():
+    """``GATv2Conv(share_weights=True)``: one projection serves both
+    sides, as JAX's ``lin_r = lin_l``; the flax tree (no ``lin_r``) loads
+    strictly, and the unfused and fused forwards equal JAX's at 1e-5 in
+    float32."""
+    from segger_tpu.models.gatv2 import GATv2Conv as JConv
+    from segger_tpu.ops import coo_to_padded_csr
+    from segger_tpu_torch.models.convert import params_from_flax
+    from segger_tpu_torch.models.gatv2 import GATv2Conv
+
+    rng = np.random.default_rng(8)
+    n_src, n_dst, f, heads, ch = 70, 40, 12, 2, 8
+    dst = rng.integers(1, n_dst, 200)            # row 0: no in-edge
+    csr = coo_to_padded_csr(dst, rng.integers(0, n_src, 200), n_dst=n_dst)
+    x_src = rng.normal(size=(n_src, f)).astype(np.float32)
+    x_dst = rng.normal(size=(n_dst, f)).astype(np.float32)
+    jconv = JConv(ch, heads, share_weights=True)
+    jcsr = jax.tree.map(jnp.asarray, csr)
+    params = jconv.init(jax.random.PRNGKey(1), x_src, x_dst, jcsr)
+    assert "lin_r" not in params["params"]
+    want = np.asarray(jconv.apply(params, x_src, x_dst, jcsr))
+    conv = GATv2Conv(f, ch, heads, share_weights=True)
+    assert not hasattr(conv, "lin_r") and conv.lin_dst is conv.lin_l
+    conv.load_state_dict(params_from_flax(params), strict=True)
+    idx, mask = _t(csr.idx), _t(csr.mask)
+    table = tpart.PaddedCSR(idx, mask)
+    with torch.no_grad():
+        unfused = conv(_t(x_src), _t(x_dst), table)
+        fused = conv(_t(x_src), _t(x_dst), table,
+                     segments=[(0, n_dst, idx, mask, None)])
+    for got in (unfused, fused):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    # the destination side reads lin_l: changing it moves the output
+    with torch.no_grad():
+        conv.lin_l.bias.add_(1.0)
+        moved = conv(_t(x_src), _t(x_dst), table)
+    assert not torch.allclose(moved, unfused)
+    assert sum(p.numel() for p in conv.parameters()) == sum(
+        np.asarray(a).size for a in jax.tree.leaves(params))
