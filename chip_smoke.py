@@ -7,8 +7,12 @@
                                      # step, by kernel, into
                                      # chiprun_out/{predict,train}_profile.txt
     python3 chip_smoke.py --whole-slide  # the build, phase 7's pipeline
-                                     # and phases 10 and 11 only (run
-                                     # it on a host of several cards)
+                                     # and phases 10, 11 and 12 only
+                                     # (run it on a host of several
+                                     # cards)
+
+Phase 12 starts its ranks as ``chip_smoke.py --rank R --world W --addr
+HOST:PORT --work DIR --backend gloo|nccl`` (``rank_main``).
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -144,7 +148,24 @@ Phases (any failure exits non-zero; nothing is caught):
    cards the same mesh with shard d on card d (losses within
    ``GRAPH_STEP_RTOL``, predict bit-equal) and with four ``segment
    --devices 4`` on phase 7's slide as a Xenium directory; then K1, K2,
-   K3 and K5 against their plain versions on one shard's own tiles.
+   K3 and K5 against their plain versions on one shard's own tiles;
+12. the whole-slide paths over several processes (``drive_multiprocess``)
+   on phase 7's graph with phase 7's trained weights at ``TrainConfig()``
+   width, one shard a rank: two ranks of this script on ``cuda:0`` joined
+   by ``initialize_multihost(backend="gloo")`` (NCCL refuses two ranks
+   on one card), started as subprocesses and waited for at most
+   ``MP_TIMEOUT`` seconds (a failed rank or the limit kills them all);
+   ``predict_whole_slide`` at 2 strips and a 2x1 grid bit-equal to one
+   process's 2-shard predict on ``cuda:0``, ``fit_whole_slide`` for 2
+   epochs from the seeded init with every epoch's loss within
+   ``GRAPH_STEP_RTOL`` of one process's and the parameters equal on both
+   ranks, each rank's launches its shard's share (8 K1 and 1 K5 a
+   predict, 8 K2 and 8 K3 a step); with several cards the same with
+   ``min(4, count)`` NCCL ranks, rank r on card r (strips, and the 2x2
+   grid on four), against one process over the same cards.  The walls
+   (rank start-up and ``initialize_multihost``, predicts, fit epochs)
+   are printed beside one process's and the card's name and power
+   limit.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel JSON record, and the line before that the card's
@@ -2350,12 +2371,345 @@ def print_tile_dp(td, card) -> None:
               f"{json.dumps(td['cli']['counts'])}")
 
 
+# phase 12: the whole-slide paths over several processes
+MP_WORLD = 2                      # ranks on one card (gloo)
+MP_TIMEOUT = 300                  # seconds for every rank of a run
+MP_GRACE = 10                     # seconds left to the others once a
+                                  # rank has failed
+MP_PREDICTS = 2                   # predicts a layout (the second warm)
+
+
+def mp_layouts(world: int) -> tuple:
+    """A ``world``-rank run's layouts, one shard a rank: ``world`` strips
+    and a grid, ``(2, 2)`` on four ranks, else ``(world, 1)``."""
+    grid = (2, 2) if world == 4 else (world, 1)
+    return (("strips", None), (f"{grid[0]}x{grid[1]} grid", grid))
+
+
+def mp_devices(world: int, backend: str, device=None) -> list:
+    """Rank ``r``'s device: ``cuda:r`` under NCCL, ``cuda:0`` for every
+    rank under gloo, or ``device`` (the CPU rehearsal)."""
+    import torch
+
+    if device is not None and torch.device(device).type != "cuda":
+        return [torch.device(device)] * world
+    return [torch.device("cuda", r if backend == "nccl" else 0)
+            for r in range(world)]
+
+
+def mp_predicts(tr, world, mesh_of, sync) -> tuple:
+    """``MP_PREDICTS`` whole-slide predicts a layout of a ``world``-rank
+    run over ``mesh_of(grid)``, the kernel counts set to 0 just before
+    each and read just after: the last predict, every run's counts and
+    walls, by layout; the runs must agree bit for bit."""
+    import numpy as np
+
+    preds, counts, walls = {}, {}, {}
+    for name, grid in mp_layouts(world):
+        for i in range(MP_PREDICTS):
+            reset_counts()
+            t0 = time.perf_counter()
+            p = ws_sorted(tr.predict_whole_slide(mesh_of(grid), grid=grid))
+            sync()
+            walls.setdefault(name, []).append(time.perf_counter() - t0)
+            counts.setdefault(name, []).append(read_counts())
+            if name in preds and not all(np.array_equal(p[k], preds[name][k])
+                                         for k in p):
+                raise AssertionError(f"multi-process {name}: two predicts "
+                                     "differ")
+            preds[name] = p
+    return preds, counts, walls
+
+
+def mp_fit(graph, dev, epochs, train_kw, mesh) -> dict:
+    """``fit_whole_slide`` for ``epochs`` from the seeded init, counted:
+    its history, epoch walls, launches and flat parameters."""
+    from segger_tpu_torch.parallel.mesh import flat_parameters
+
+    tr = ws_trainer(graph, None, dev, "bfloat16", epochs, train_kw)
+    reset_counts()
+    hist = tr.fit_whole_slide(mesh, max_epochs=epochs)
+    if dev.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+    return {"history": hist, "counts": read_counts(),
+            "epoch_walls": [sec for _, _, sec in tr.step_log],
+            "params": flat_parameters(tr.model).cpu().numpy()}
+
+
+def rank_main(argv) -> int:
+    """One rank of phase 12, started by :func:`drive_multiprocess` as
+    ``chip_smoke.py --rank R --world W --addr HOST:PORT --work DIR
+    --backend gloo|nccl``: joins the group on its device, reads phase
+    7's graph (a graph plane) and weights and the run's settings from
+    ``DIR``, runs
+    :func:`mp_predicts` and :func:`mp_fit` over the global mesh, and
+    writes what it saw to ``DIR/rank<R>.pkl``."""
+    import pickle
+
+    import torch
+
+    opts = dict(zip(argv[0::2], argv[1::2]))
+    rank, world = int(opts["--rank"]), int(opts["--world"])
+    work = Path(opts["--work"])
+    run = json.loads((work / "run.json").read_text())
+    if run["device"] == "cuda" and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from segger_tpu_torch.data.assemble import load_host_graph_plane
+    from segger_tpu_torch.parallel.mesh import (
+        initialize_multihost, make_mesh, shutdown_multihost,
+    )
+
+    dev = mp_devices(world, opts["--backend"], run["device"])[rank]
+    # the ranks share the host's cores, as torchrun's workers do
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    t0 = time.perf_counter()
+    initialize_multihost(opts["--addr"], world, rank,
+                         backend=opts["--backend"], devices=[dev])
+    walls = {"initialize_multihost": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    graph = load_host_graph_plane(work / "graph", mmap=False)
+    state = torch.load(work / "state.pt")
+    walls["load graph and weights"] = time.perf_counter() - t0
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    tr = ws_trainer(graph, state, dev, "bfloat16", run["epochs"],
+                    run["train_kw"])
+    preds, counts, pwalls = mp_predicts(tr, world, lambda grid: None, sync)
+    fit = mp_fit(graph, dev, run["epochs"], run["train_kw"], make_mesh())
+    shutdown_multihost()
+    (work / f"rank{rank}.pkl").write_bytes(pickle.dumps({
+        "preds": preds, "counts": counts, "walls": walls,
+        "predict_walls": pwalls, "fit": fit,
+        "device": str(dev)}))
+    print(f"rank {rank} of {world}: done", flush=True)
+    return 0
+
+
+def start_ranks(argv_of, work, world: int) -> list:
+    """Start ``world`` processes ``python *argv_of(rank, "HOST:PORT")``
+    on one free port of this host, rank ``r`` writing its output to
+    ``work/rank<r>.log``: their ``(process, log path)`` pairs."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{s.getsockname()[1]}"
+    ranks = []
+    for r in range(world):
+        log = Path(work) / f"rank{r}.log"
+        with open(log, "w") as f:
+            ranks.append((subprocess.Popen(
+                [sys.executable, *argv_of(r, addr)], stdout=f,
+                stderr=subprocess.STDOUT, cwd=ROOT), log))
+    return ranks
+
+
+def wait_ranks(ranks, timeout: float) -> list:
+    """Wait for the ranks of :func:`start_ranks`, at most ``timeout``
+    seconds, and once one has failed at most ``MP_GRACE`` more (its peers
+    would wait for it in their next collective): every rank still running
+    then is killed.  Each rank's ``(returncode, log)``, negative for a
+    killed rank."""
+    deadline = time.monotonic() + timeout
+    try:
+        while (any(p.poll() is None for p, _ in ranks)
+               and time.monotonic() < deadline):
+            if any(p.poll() for p, _ in ranks):
+                deadline = min(deadline, time.monotonic() + MP_GRACE)
+            time.sleep(0.1)
+    finally:
+        for p, _ in ranks:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    return [(p.returncode, log.read_text()) for p, log in ranks]
+
+
+def mp_run(work, world: int, backend: str) -> list:
+    """Run ``world`` ranks of this script over ``work`` (:func:`rank_main`)
+    for at most ``MP_TIMEOUT`` seconds; a rank that fails or is stopped
+    fails the run.  Each rank's results."""
+    import pickle
+
+    runs = wait_ranks(start_ranks(
+        lambda r, addr: [str(ROOT / "chip_smoke.py"), "--rank", str(r),
+                         "--world", str(world), "--addr", addr, "--work",
+                         str(work), "--backend", backend], work, world),
+        MP_TIMEOUT)
+    bad = [r for r, (code, _) in enumerate(runs) if code != 0]
+    if bad:
+        raise AssertionError(
+            f"multi-process ({backend}, {world} ranks): ranks {bad} failed "
+            f"or were stopped (codes {[code for code, _ in runs]}, limit "
+            f"{MP_TIMEOUT} s):\n" + "\n".join(
+                f"-- rank {r}\n{log[-3000:]}"
+                for r, (_, log) in enumerate(runs)))
+    return [pickle.loads((Path(work) / f"rank{r}.pkl").read_bytes())
+            for r in range(world)]
+
+
+def drive_multiprocess(work_dir, graph, state, device=None,
+                       epochs=PIPE_EPOCHS, train_kw=None, world=MP_WORLD,
+                       backend="gloo") -> dict:
+    """Phase 12: the whole-slide paths over ``world`` processes on phase
+    7's graph with phase 7's trained weights ``state``, one shard a rank:
+    under gloo every rank on ``cuda:0`` (NCCL refuses two ranks on one
+    card), under NCCL rank ``r`` on ``cuda:r``.
+
+    First the references in this process, one process over the ranks'
+    devices: ``MP_PREDICTS`` predicts at ``world`` strips and the grid
+    of :func:`mp_layouts`, and ``fit_whole_slide`` for ``epochs`` from
+    the seeded init.  Then the ranks (this script with ``--rank``), each
+    joining the group with ``initialize_multihost`` and running the same
+    over the global mesh.  Every rank's predicts must equal the
+    reference's bit for bit, its fit's epoch losses lie within
+    ``GRAPH_STEP_RTOL`` of the reference's, the parameters after the fit
+    be equal on every rank, and on CUDA each rank's launches be its
+    shard's share: 8 K1 and 1 K5 a predict, 8 K2 and 8 K3 a step.
+    Returns the walls, counts and checks."""
+    import numpy as np
+    import torch
+
+    from segger_tpu_torch.data.assemble import save_host_graph_plane
+    from segger_tpu_torch.parallel.mesh import make_grid_mesh, make_mesh
+
+    devs = mp_devices(world, backend, device)
+    cuda = devs[0].type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def mesh_of(grid):
+        return (make_mesh(devices=devs) if grid is None
+                else make_grid_mesh(*grid, devs))
+
+    n_layers = 4 if train_kw is None else 2 + train_kw.get(
+        "n_mid_layers", 2)
+    tr = ws_trainer(graph, state, devs[0], "bfloat16", epochs, train_kw)
+    want, want_counts, ref_walls = mp_predicts(tr, world, mesh_of, sync)
+    del tr
+    ref_fit = mp_fit(graph, devs[0], epochs, train_kw, mesh_of(None))
+    work = Path(work_dir)
+    save_host_graph_plane(graph, work / "graph", with_edge_groups=False)
+    torch.save({k: v.cpu() for k, v in state.items()}, work / "state.pt")
+    (work / "run.json").write_text(json.dumps({
+        "device": devs[0].type, "epochs": epochs, "train_kw": train_kw}))
+    t0 = time.perf_counter()
+    ranks = mp_run(work, world, backend)
+    wall = time.perf_counter() - t0
+
+    pred_want = ws_counts(n_layers, 1, predicts=1)
+    fit_want = ws_counts(n_layers, 1, steps=epochs)
+    ref_losses = [h["train:loss"] for h in ref_fit["history"]]
+    checks = {}
+    for r, got in enumerate(ranks):
+        for name, p in got["preds"].items():
+            if not all(np.array_equal(p[k], want[name][k]) for k in p):
+                raise AssertionError(f"multi-process rank {r} {name}: the "
+                                     "predict differs from one process's")
+        losses = [h["train:loss"] for h in got["fit"]["history"]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        if not (len(losses) == epochs and rel <= GRAPH_STEP_RTOL):
+            raise AssertionError(f"multi-process rank {r}: fit losses "
+                                 f"{losses}, one process {ref_losses}")
+        if not np.array_equal(got["fit"]["params"],
+                              ranks[0]["fit"]["params"]):
+            raise AssertionError(f"multi-process rank {r}: parameters "
+                                 "differ from rank 0's after the fit")
+        if cuda and (any(c != pred_want for cs in got["counts"].values()
+                         for c in cs) or got["fit"]["counts"] != fit_want):
+            raise AssertionError(
+                f"multi-process rank {r}: launches {got['counts']}, fit "
+                f"{got['fit']['counts']}, expected {pred_want} a predict "
+                f"and {fit_want} a fit")
+        checks[r] = {"device": got["device"], "loss_rel": rel,
+                     "losses": losses}
+    return {"world": world, "backend": backend, "ranks": ranks,
+            "checks": checks, "wall": wall, "ref_walls": ref_walls,
+            "ref_epoch_walls": ref_fit["epoch_walls"],
+            "ref_losses": ref_losses, "ref_counts": want_counts,
+            "ref_fit_counts": ref_fit["counts"], "n_layers": n_layers}
+
+
+def multiprocess_counts(mp) -> dict:
+    """Every rank's launches of phase 12 (its predicts and its fit),
+    summed, by kernel mode."""
+    total = {"fwd": dict.fromkeys(("nokeep", "prng", "keep"), 0),
+             "bwd": dict.fromkeys(("nokeep", "prng", "keep"), 0),
+             "score": 0}
+    for got in mp["ranks"]:
+        runs = [c for cs in got["counts"].values() for c in cs]
+        for c in runs + [got["fit"]["counts"]]:
+            for mode in ("nokeep", "prng", "keep"):
+                total["fwd"][mode] += c["fwd"][mode]
+                total["bwd"][mode] += c["bwd"][mode]
+            total["score"] += c["score"]
+    return total
+
+
+def print_multiprocess(mp, card) -> None:
+    """Phase 12's walls, checks and launches."""
+    def r(xs):
+        return [round(x, 4) for x in xs]
+
+    print(f"multi-process: {mp['world']} ranks ({mp['backend']}) on "
+          f"{sorted({g['device'] for g in mp['ranks']})}, phase 7's graph "
+          f"with its trained weights, TrainConfig() width, one shard a "
+          f"rank; ranks started, run and joined in {mp['wall']:.3f} s | "
+          f"{card}")
+    print("multi-process one process (reference): predict walls (s) "
+          + json.dumps({k: r(v) for k, v in mp["ref_walls"].items()})
+          + f"; fit epoch walls (s) {r(mp['ref_epoch_walls'])}; losses "
+          f"{mp['ref_losses']}")
+    for rank, got in enumerate(mp["ranks"]):
+        c = mp["checks"][rank]
+        print(f"multi-process rank {rank} on {c['device']}: walls (s) "
+              + json.dumps({k: round(v, 4) for k, v in got["walls"].items()})
+              + "; predict walls (s) " + json.dumps(
+                  {k: r(v) for k, v in got["predict_walls"].items()})
+              + f"; bit-equal to one process; fit epoch walls (s) "
+              f"{r(got['fit']['epoch_walls'])}, losses {c['losses']} "
+              f"(largest relative difference {c['loss_rel']:.3e}, limit "
+              f"{GRAPH_STEP_RTOL}); parameters equal to rank 0's")
+    print(f"multi-process launches, every rank summed "
+          f"{json.dumps(multiprocess_counts(mp))}")
+
+
+def multiprocess_phase(graph, state, card) -> list:
+    """Phase 12 as the script runs it: two gloo ranks on ``cuda:0``, then
+    with several cards ``min(4, count)`` NCCL ranks, one a card; each
+    run printed.  The runs' results."""
+    import tempfile
+
+    import torch
+
+    runs = [(MP_WORLD, "gloo")]
+    if torch.cuda.device_count() > 1:
+        runs.append((min(4, torch.cuda.device_count()), "nccl"))
+    mps = []
+    for world, backend in runs:
+        with tempfile.TemporaryDirectory() as work_dir:
+            mps.append(drive_multiprocess(work_dir, graph, state,
+                                          world=world, backend=backend))
+        print_multiprocess(mps[-1], card)
+    return mps
+
+
 def whole_slide_only(card) -> int:
     """``--whole-slide``: phase 7's pipeline run for its graph and
-    weights, then phases 10 and 11, with no timing of kernels; on a host
-    of several cards this holds the 4-strip runs and the tile-data-
-    parallel fit and predict over the cards against one card, and runs
-    ``segment --devices 4`` with four cards, at a fraction of the full
+    weights, then phases 10, 11 and 12, with no timing of kernels; on a
+    host of several cards this holds the 4-strip runs and the tile-data-
+    parallel fit and predict over the cards against one card, runs
+    ``segment --devices 4`` with four cards, and one NCCL rank a card
+    against one process over the cards, at a fraction of the full
     script's chip time."""
     import tempfile
 
@@ -2371,6 +2725,7 @@ def whole_slide_only(card) -> int:
         td = drive_tile_dp(work_dir, pipe["graph"], pipe["tree"],
                            pipe["truth"])
     print_tile_dp(td, card)
+    multiprocess_phase(pipe["graph"], pipe["state"], card)
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2379,6 +2734,8 @@ def whole_slide_only(card) -> int:
 
 
 def main(argv) -> int:
+    if "--rank" in argv:
+        return rank_main(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -2977,6 +3334,7 @@ def main(argv) -> int:
     # grid, the surrogate gradient, fit_whole_slide, several cards when
     # there are, and segment --distributed-predict --distributed-train
     graph7, tree7, truth7 = pipe["graph"], pipe.pop("tree"), pipe["truth"]
+    state7 = pipe["state"]
     with tempfile.TemporaryDirectory() as work_dir:
         ws = drive_whole_slide(work_dir, pipe.pop("graph"),
                                pipe.pop("state"), pipe.pop("truth"), table7)
@@ -3025,7 +3383,7 @@ def main(argv) -> int:
     # when there are several), then the kernels on one shard's tiles
     with tempfile.TemporaryDirectory() as work_dir:
         td = drive_tile_dp(work_dir, graph7, tree7, truth7)
-    del graph7, tree7, truth7
+    del tree7, truth7
     print_tile_dp(td, card)
     ptile, ftile = td["tiles"]["predict"], td["tiles"]["train"]
     n_checked = len(checks)
@@ -3045,6 +3403,12 @@ def main(argv) -> int:
     for kernel, where, r in checks[n_checked:]:
         print(f"{kernel} [{where}] " + json.dumps(r))
     del ptile, ftile, td["tiles"]
+
+    # -- phase 12: the whole-slide paths over several processes on phase
+    # 7's graph with its trained weights: two gloo ranks on cuda:0, and
+    # with several cards one NCCL rank a card
+    mps = multiprocess_phase(graph7, state7, card)
+    del graph7, state7
 
     def summary(kernel, tile_prefix, modes=None):
         rs = [r for k, w, r in checks if k == kernel]
@@ -3211,6 +3575,16 @@ def main(argv) -> int:
             get(f) + get(p) for f, p in zip(td["fit_shards"],
                                             td["predict_shards"])]
         rec["tile_dp_shard"] = on_pipeline(kernel, prefix, modes)
+    # phase 12's launches, every rank's
+    mp_counts = [multiprocess_counts(mp) for mp in mps]
+    for rec, get in ((kernels[0], lambda c: c["fwd"]["nokeep"]),
+                     (kernels[1], lambda c: c["fwd"]["prng"]),
+                     (kernels[2], lambda c: c["bwd"]["prng"]
+                      + c["bwd"]["nokeep"]),
+                     (kernels[4], lambda c: c["score"])):
+        n = sum(get(c) for c in mp_counts)
+        rec["launches"] += n
+        rec["launches_by_path"]["multi-process"] = n
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

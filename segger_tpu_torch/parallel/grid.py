@@ -1,11 +1,10 @@
 """2-D grid halo-exchange sharding: whole-slide execution over a
 ``(dx, dy)`` grid of shards.
 
-The port of ``segger_tpu/parallel/grid.py`` for one process driving
-every shard.  The 1-D strips (``parallel/halo.py``) scale until strips
-grow thin relative to the interaction radius; for slides large in both
-dimensions a grid of rectangles keeps each shard's surface-to-volume
-ratio bounded.  The mesh has axes ``("x", "y")`` and shard id
+The port of ``segger_tpu/parallel/grid.py``.  The 1-D strips
+(``parallel/halo.py``) scale until strips grow thin relative to the
+interaction radius; for slides large in both dimensions a grid of
+rectangles keeps each shard's surface-to-volume ratio bounded.  The mesh has axes ``("x", "y")`` and shard id
 ``gx * dy + gy``.
 
 Halo rows cross shard boundaries in a **two-stage relay**: first an
@@ -20,13 +19,16 @@ order::
 
 x-stage send lists index local rows; y-stage send lists index the
 x-extended prefix ``[0, P + 2H)``.  As in the 1-D module the exchange
-returns *pieces*, which the conv projects one by one.
+returns *pieces*, which the conv projects one by one, and each stage
+moves through ``parallel/transport.py``, across ranks too; stage 2's
+buffers read stage 1's received rows, so a rank posts stage 2 only once
+stage 1's sends and receives are complete.
 """
 from __future__ import annotations
 
 import logging
 from dataclasses import dataclass
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +41,7 @@ from .halo import (
     send_buffer,
 )
 from .mesh import ArrayFields, Mesh, make_grid_mesh, put_sharded
+from .transport import exchange, shard_ids
 
 logger = logging.getLogger(__name__)
 
@@ -147,24 +150,26 @@ def build_grid_sharded_graph(
 # ----------------------------------------------------------------------
 # device side
 # ----------------------------------------------------------------------
-def _exchange_2d(xs: Sequence[torch.Tensor], s_xl, s_xl_m, s_xr, s_xr_m,
-                 s_yd, s_yd_m, s_yu, s_yu_m, dx: int, dy: int
-                 ) -> List[tuple]:
-    """The two-stage relay; every send argument is a per-shard list.
-    Shard ``d`` gets ``(local, from_xl, from_xr, from_yd, from_yu)``,
-    zeros where it has no neighbour.  Stage-2 send buffers gather from
-    the x-extended space piecewise (local rows from ``x``, halo rows
-    from the stage-1 results) without forming the concatenation."""
+def _exchange_2d(xs: Sequence[Optional[torch.Tensor]], s_xl, s_xl_m, s_xr,
+                 s_xr_m, s_yd, s_yd_m, s_yu, s_yu_m, dx: int, dy: int,
+                 mesh: Optional[Mesh] = None) -> List[Optional[tuple]]:
+    """The two-stage relay; every send argument is a per-shard list
+    (``None`` for the other ranks' shards; without a mesh every shard is
+    this process's).  Shard ``d`` gets ``(local, from_xl, from_xr,
+    from_yd, from_yu)``, zeros where it has no neighbour.  Stage-2 send
+    buffers gather from the x-extended space piecewise (local rows from
+    ``x``, halo rows from the stage-1 results) without forming the
+    concatenation."""
     n = dx * dy
-
-    def recv(bufs, d, src, edge):
-        dev = xs[d].device
-        return torch.zeros_like(bufs[d]) if edge else bufs[src].to(dev)
-
-    buf_r = [send_buffer(xs[d], s_xr[d], s_xr_m[d]) for d in range(n)]
-    buf_l = [send_buffer(xs[d], s_xl[d], s_xl_m[d]) for d in range(n)]
-    from_xl = [recv(buf_r, d, d - dy, d // dy == 0) for d in range(n)]
-    from_xr = [recv(buf_l, d, d + dy, d // dy == dx - 1) for d in range(n)]
+    local = shard_ids(n, mesh)
+    buf_r, buf_l = [None] * n, [None] * n
+    for d in local:
+        buf_r[d] = send_buffer(xs[d], s_xr[d], s_xr_m[d])
+        buf_l[d] = send_buffer(xs[d], s_xl[d], s_xl_m[d])
+    from_xl, from_xr = exchange(
+        ([(d, d + dy) for d in range(n) if d // dy < dx - 1],
+         [(d, d - dy) for d in range(n) if d // dy > 0]),
+        (buf_r, buf_l), mesh)
 
     def pick(d, idx, m):
         x = xs[d]
@@ -176,22 +181,27 @@ def _exchange_2d(xs: Sequence[torch.Tensor], s_xl, s_xl_m, s_xr, s_xr_m,
         v = torch.where((idx < p)[:, None], loc, hal)
         return torch.where(m[:, None], v, 0.0)
 
-    up = [pick(d, s_yu[d], s_yu_m[d]) for d in range(n)]
-    down = [pick(d, s_yd[d], s_yd_m[d]) for d in range(n)]
-    from_yd = [recv(up, d, d - 1, d % dy == 0) for d in range(n)]
-    from_yu = [recv(down, d, d + 1, d % dy == dy - 1) for d in range(n)]
-    return [(xs[d], from_xl[d], from_xr[d], from_yd[d], from_yu[d])
+    up, down = [None] * n, [None] * n
+    for d in local:
+        up[d] = pick(d, s_yu[d], s_yu_m[d])
+        down[d] = pick(d, s_yd[d], s_yd_m[d])
+    from_yd, from_yu = exchange(
+        ([(d, d + 1) for d in range(n) if d % dy < dy - 1],
+         [(d, d - 1) for d in range(n) if d % dy > 0]), (up, down), mesh)
+    return [None if from_xl[d] is None
+            else (xs[d], from_xl[d], from_xr[d], from_yd[d], from_yu[d])
             for d in range(n)]
 
 
-def grid_exchanges(halos: Sequence[GridHaloSpec], dx: int, dy: int
+def grid_exchanges(halos: Sequence[Optional[GridHaloSpec]], dx: int,
+                   dy: int, mesh: Optional[Mesh] = None
                    ) -> Tuple[Exchange, Exchange]:
     """The tx and bd two-stage exchanges of a grid-sharded slide."""
     def make(kind):
         sends = _sends(halos, [f"{kind}_send_{side}{m}"
                                for side in ("xl", "xr", "yd", "yu")
                                for m in ("", "_mask")])
-        return lambda xs: _exchange_2d(xs, *sends, dx, dy)
+        return lambda xs: _exchange_2d(xs, *sends, dx, dy, mesh=mesh)
     return make("tx"), make("bd")
 
 
@@ -209,7 +219,7 @@ def make_grid_predict(model, mesh: Mesh, ax: str = "x", ay: str = "y"):
 
     def fn(shards, halos):
         return predict_shards(model, mesh, shards, halos,
-                              grid_exchanges(halos, dx, dy))
+                              grid_exchanges(halos, dx, dy, mesh))
     return fn
 
 
@@ -223,8 +233,8 @@ def make_grid_train_step(model, optimizer, mesh: Mesh, tx_similarity,
     dx, dy = _grid_dims(mesh, ax, ay)
     return make_train_step(
         model, optimizer, mesh, tx_similarity, bd_similarity,
-        lambda halos: grid_exchanges(halos, dx, dy), tx_margin, sg_margin,
-        sg_loss_type)
+        lambda halos, m: grid_exchanges(halos, dx, dy, m), tx_margin,
+        sg_margin, sg_loss_type)
 
 
 def grid_predict(model, graph: HostGraph, mesh: Mesh, ax: str = "x",
@@ -237,4 +247,4 @@ def grid_predict(model, graph: HostGraph, mesh: Mesh, ax: str = "x",
                        "(tt, sg, cand)", dropped.tolist())
     fn = make_grid_predict(model, mesh, ax, ay)
     return flat_predictions(fn(put_sharded(stacked, mesh),
-                               put_sharded(halo, mesh)))
+                               put_sharded(halo, mesh)), mesh)

@@ -1,26 +1,29 @@
 """Halo-exchange sharded execution: whole-slide inference and training
 over a device mesh without tiling truncation.
 
-The port of ``segger_tpu/parallel/halo.py`` for one process driving
-every shard.  The graph is strip-partitioned by x-coordinate, every
-shard owns its nodes exactly once, and before *each* GATv2 layer the
-features of boundary nodes are fetched from their owners: a masked row
-gather on the owner, moved with ``.to()`` to the consumer's device (the
-counterpart of ``jax.lax.ppermute``).  The per-layer refresh makes the
-computation exact at any depth: no margins, no duplicate predictions,
-no dedupe.
+The port of ``segger_tpu/parallel/halo.py``.  The graph is
+strip-partitioned by x-coordinate, every shard owns its nodes exactly
+once, and before *each* GATv2 layer the features of boundary nodes are
+fetched from their owners: a masked row gather on the owner, moved to
+the consumer by ``parallel/transport.py`` (the counterpart of
+``jax.lax.ppermute``): with ``.to()`` inside a process, with
+point-to-point sends between the ranks of a mesh that spans processes.
+The per-layer refresh makes the computation exact at any depth: no
+margins, no duplicate predictions, no dedupe.
 
 Host side: :func:`build_sharded_graph` strips the slide, builds per-shard
 padded TileGraphs whose CSR indices point into the *extended* node space
 ``[local | halo-from-left | halo-from-right]``, and records the send
-index lists.  Device side: :func:`sharded_forward` runs the encoder's
-steps (``ISTEncoder.embed`` / ``layer`` / ``head``) with the layers on
-the outside and the shards on the inside, the exchange between layers:
-the exchange is a barrier between the shards' layers.  Nothing
-synchronizes inside the loop, so shards on different cards overlap.
-Autograd carries the backward through the exchange: the gather's
-backward adds each consumer's cotangent into the owner's rows and
-``.to()`` copies it back, as JAX derives the VJP of ``ppermute``.  On a
+index lists; every rank builds every shard.  Device side:
+:func:`sharded_forward` runs the encoder's steps (``ISTEncoder.embed`` /
+``layer`` / ``head``) with the layers on the outside and this process's
+shards on the inside, the exchange between layers: the exchange is a
+barrier between the shards' layers.  Per-shard lists span the whole mesh
+and hold ``None`` for the other ranks' shards.  Nothing synchronizes
+inside a process's loop, so shards on different cards overlap.  Autograd
+carries the backward through the exchange: the gather's backward adds
+each consumer's cotangent into the owner's rows and the transport's
+backward sends it back, as JAX derives the VJP of ``ppermute``.  On a
 CUDA tensor every conv runs the fused kernels: the prediction launches
 the forward kernel without transpose tables, training with the
 extended ones (``TileGraph.transposes_extended``).
@@ -41,11 +44,13 @@ from ..models.encoder import whole_table_segments
 from ..ops.gather_agg import score_candidates
 from ._build_common import build_partitioned
 from .mesh import ArrayFields, Mesh, fetch_global, put_sharded, replicate
+from .transport import all_reduce_, all_reduce_gradients, exchange, shard_ids
 
 logger = logging.getLogger(__name__)
 
 # a whole-slide exchange: per-shard (N, F) tensors -> per-shard tuples of
-# the extended source's pieces, on each shard's device
+# the extended source's pieces, on each shard's device (None for the other
+# ranks' shards, in and out)
 Exchange = Callable[[List[torch.Tensor]], List[Tuple[torch.Tensor, ...]]]
 
 
@@ -128,44 +133,46 @@ def send_buffer(x: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor
     return torch.where(mask[:, None], x[idx.long()], 0.0)
 
 
-def _exchange_1d(xs: Sequence[torch.Tensor], send_left, send_left_mask,
-                 send_right, send_right_mask) -> List[tuple]:
+def _exchange_1d(xs: Sequence[Optional[torch.Tensor]], send_left,
+                 send_left_mask, send_right, send_right_mask,
+                 mesh: Optional[Mesh] = None) -> List[Optional[tuple]]:
     """Exchange halo rows between strip neighbours; every argument is a
-    per-shard list.  Shard ``d`` gets ``(x[d], from_left, from_right)``:
-    ``from_left`` is shard ``d - 1``'s ``send_right`` rows, zeros on
-    shard 0, and ``from_right`` shard ``d + 1``'s ``send_left`` rows,
-    zeros on the last.  The pieces are returned apart, not concatenated:
-    the conv projects each on its own (``models/gatv2.py``), and the
-    extended-space indices address ``[local | from_left | from_right]``
-    in this order."""
+    per-shard list (``None`` for the other ranks' shards; without a mesh
+    every shard is this process's).  Shard ``d`` gets ``(x[d], from_left,
+    from_right)``: ``from_left`` is shard ``d - 1``'s ``send_right``
+    rows, zeros on shard 0, and ``from_right`` shard ``d + 1``'s
+    ``send_left`` rows, zeros on the last.  The pieces are returned
+    apart, not concatenated: the conv projects each on its own
+    (``models/gatv2.py``), and the extended-space indices address
+    ``[local | from_left | from_right]`` in this order."""
     n = len(xs)
-    to_right = [send_buffer(xs[d], send_right[d], send_right_mask[d])
-                for d in range(n)]
-    to_left = [send_buffer(xs[d], send_left[d], send_left_mask[d])
-               for d in range(n)]
-    out = []
-    for d in range(n):
-        dev = xs[d].device
-        from_left = (to_right[d - 1].to(dev) if d > 0
-                     else torch.zeros_like(to_right[d]))
-        from_right = (to_left[d + 1].to(dev) if d < n - 1
-                      else torch.zeros_like(to_left[d]))
-        out.append((xs[d], from_left, from_right))
-    return out
+    to_right, to_left = [None] * n, [None] * n
+    for d in shard_ids(n, mesh):
+        to_right[d] = send_buffer(xs[d], send_right[d], send_right_mask[d])
+        to_left[d] = send_buffer(xs[d], send_left[d], send_left_mask[d])
+    from_left, from_right = exchange(
+        ([(d, d + 1) for d in range(n - 1)],
+         [(d + 1, d) for d in range(n - 1)]), (to_right, to_left), mesh)
+    return [None if from_left[d] is None
+            else (xs[d], from_left[d], from_right[d]) for d in range(n)]
 
 
 def _sends(halos: Sequence, names: Sequence[str]) -> List[list]:
-    """The named send tables of every shard, one per-shard list a name."""
-    return [[getattr(h, name) for h in halos] for name in names]
+    """The named send tables of every shard, one per-shard list a name
+    (``None`` for the other ranks' shards)."""
+    return [[None if h is None else getattr(h, name) for h in halos]
+            for name in names]
 
 
-def strip_exchanges(halos: Sequence[HaloSpec]) -> Tuple[Exchange, Exchange]:
+def strip_exchanges(halos: Sequence[Optional[HaloSpec]],
+                    mesh: Optional[Mesh] = None
+                    ) -> Tuple[Exchange, Exchange]:
     """The tx and bd exchanges of a strip-sharded slide."""
     def make(kind):
         sends = _sends(halos, [f"{kind}_send_{side}{m}"
                                for side in ("left", "right")
                                for m in ("", "_mask")])
-        return lambda xs: _exchange_1d(xs, *sends)
+        return lambda xs: _exchange_1d(xs, *sends, mesh=mesh)
     return make("tx"), make("bd")
 
 
@@ -181,12 +188,13 @@ class _Method(torch.nn.Module):
         return getattr(self.model, name)(*args, **kwargs)
 
 
-def _callers(model: torch.nn.Module, mesh: Mesh) -> List[Callable]:
-    """Per shard, ``call(method_name, *args)`` on the model with the
-    parameters of the shard's device (:func:`~.mesh.replicate`): the
-    parameters themselves on the model's own device, and elsewhere
-    ``.to()`` copies made once per device inside the autograd graph, so
-    that each device's gradient flows back into the one parameter set."""
+def _callers(model: torch.nn.Module, mesh: Mesh) -> List[Optional[Callable]]:
+    """Per shard of this process (``None`` for the other ranks'),
+    ``call(method_name, *args)`` on the model with the parameters of the
+    shard's device (:func:`~.mesh.replicate`): the parameters themselves
+    on the model's own device, and elsewhere ``.to()`` copies made once
+    per device inside the autograd graph, so that each device's gradient
+    flows back into the one parameter set."""
     home = next(model.parameters()).device
     wrapper = _Method(model)
 
@@ -201,51 +209,58 @@ def _callers(model: torch.nn.Module, mesh: Mesh) -> List[Callable]:
         dev: direct if dev == home else
         on({f"model.{k}": v for k, v in params.items()})
         for dev, params in replicate(model, mesh).items()}
-    return [by_device[dev] for dev in mesh.devices]
+    return [by_device[mesh.devices[d]] if d in mesh.local else None
+            for d in range(mesh.size)]
 
 
-def sharded_forward(model, mesh: Mesh, shards: Sequence[TileGraph],
+def sharded_forward(model, mesh: Mesh, shards: Sequence[Optional[TileGraph]],
                     exchange: Exchange, deterministic: bool = True,
                     seeds: Optional[Sequence] = None
-                    ) -> List[Dict[str, torch.Tensor]]:
-    """Every shard's embeddings, ``{"tx", "bd"}`` on its device: the
-    encoder's embedding of each shard (positions prenormalized in the
-    slide's frame), then per layer the tx exchange and each shard's
-    layer over its extended sources, then the head.  ``seeds[d]`` is
-    shard ``d``'s seed source when dropout is on."""
+                    ) -> List[Optional[Dict[str, torch.Tensor]]]:
+    """Every shard's embeddings, ``{"tx", "bd"}`` on its device, for this
+    process's shards (``None`` for the other ranks'): the encoder's
+    embedding of each shard (positions prenormalized in the slide's
+    frame), then per layer the tx exchange and each shard's layer over its
+    extended sources, then the head.  ``seeds[d]`` is shard ``d``'s seed
+    source when dropout is on."""
     calls = _callers(model, mesh)
-    xs = [call("embed", t, True) for call, t in zip(calls, shards)]
-    segments = [whole_table_segments(t) for t in shards]
+    xs: List[Optional[tuple]] = [None] * mesh.size
+    segments = {}
+    for d in mesh.local:
+        xs[d] = calls[d]("embed", shards[d], True)
+        segments[d] = whole_table_segments(shards[d])
     for i in range(model.n_layers):
-        srcs = exchange([x_tx for x_tx, _ in xs])
-        xs = [calls[d]("layer", i, xs[d][0], xs[d][1], shards[d],
-                       deterministic,
-                       None if seeds is None else seeds[d],
-                       x_tx_src=srcs[d], segments=segments[d])
-              for d in range(len(shards))]
-    return [call("head", x_tx, x_bd)
-            for call, (x_tx, x_bd) in zip(calls, xs)]
+        srcs = exchange([None if x is None else x[0] for x in xs])
+        for d in mesh.local:
+            xs[d] = calls[d]("layer", i, xs[d][0], xs[d][1], shards[d],
+                             deterministic,
+                             None if seeds is None else seeds[d],
+                             x_tx_src=srcs[d], segments=segments[d])
+    return [None if x is None else calls[d]("head", *x)
+            for d, x in enumerate(xs)]
 
 
-def predict_shards(model, mesh: Mesh, shards: Sequence[TileGraph],
+def predict_shards(model, mesh: Mesh, shards: Sequence[Optional[TileGraph]],
                    halos: Sequence, exchanges: Tuple[Exchange, Exchange]
-                   ) -> List[tuple]:
+                   ) -> List[Optional[tuple]]:
     """Whole-slide prediction on device shards: :func:`sharded_forward`,
     one bd exchange for the candidate scoring (candidate indices address
-    the extended bd rows), and the scoring per shard.  Per shard
-    ``(tx_index, cell_encoding, similarity, gene, valid)``."""
+    the extended bd rows), and the scoring per shard.  Per shard of this
+    process ``(tx_index, cell_encoding, similarity, gene, valid)``,
+    ``None`` for the other ranks'."""
     ex_tx, ex_bd = exchanges
+    out: List[Optional[tuple]] = [None] * mesh.size
     with torch.no_grad():
         emb = sharded_forward(model, mesh, shards, ex_tx)
-        bd_ext = ex_bd([e["bd"] for e in emb])
-        out = []
-        for t, h, e, bd in zip(shards, halos, emb, bd_ext):
+        bd_ext = ex_bd([None if e is None else e["bd"] for e in emb])
+        for d in mesh.local:
+            t, h = shards[d], halos[d]
             # the similarity in the embeddings' float32, as the JAX
             # package's whole-slide predict scores them
             max_sim, seg = score_candidates(
-                e["tx"], torch.cat(bd), t.cand, h.bd_index_ext,
+                emb[d]["tx"], torch.cat(bd_ext[d]), t.cand, h.bd_index_ext,
                 normalized=model.normalize_embeddings)
-            out.append((t.tx_index, seg, max_sim, t.tx_gene, t.tx_valid))
+            out[d] = (t.tx_index, seg, max_sim, t.tx_gene, t.tx_valid)
     return out
 
 
@@ -259,7 +274,7 @@ def make_sharded_predict(model, mesh: Mesh, axis: str = "data"):
 
     def fn(shards, halos):
         return predict_shards(model, mesh, shards, halos,
-                              strip_exchanges(halos))
+                              strip_exchanges(halos, mesh))
     return fn
 
 
@@ -267,38 +282,45 @@ def make_train_step(model, optimizer, mesh: Mesh, tx_similarity,
                     bd_similarity, exchanges: Callable, tx_margin: float,
                     sg_margin: float, sg_loss_type: str):
     """The whole-slide train step for any decomposition, whose
-    ``exchanges(halos)`` gives the tx and bd exchanges.
+    ``exchanges(halos, mesh)`` gives the tx and bd exchanges.
 
     ``step(shards, halos, seeds, randoms, weights) -> (loss, aux)``:
     the forward with dropout on (``seeds[d]`` yields shard ``d``'s seed
     words), one final tx exchange so that the link loss reads the
-    neighbours' embeddings, each shard's loss statistics from
-    ``randoms(d, shard)`` (drawn after its forward), and one optimizer
-    step.  As in the JAX package each shard's local numerators are
-    divided by the global counts, which are detached (JAX's
-    ``stop_gradient(psum(...))``), and the gradient is the sum over
-    shards: autograd forms it, since the shards' parameters are copies
-    of the one set inside the graph.  ``aux`` holds the three masked
-    means and ``loss`` their weighted sum."""
+    neighbours' embeddings, each of this process's shards' loss
+    statistics from ``randoms(d, shard)`` (drawn after its forward), and
+    one optimizer step.  As in the JAX package each shard's local
+    numerators are divided by the global counts, which are detached
+    (JAX's ``stop_gradient(psum(...))``), and the gradient is the sum over
+    shards: inside a process autograd forms it, since the shards'
+    parameters are copies of the one set inside the graph, and on a mesh
+    that spans ranks the statistics and then the flat gradient are
+    all-reduced (JAX's ``psum``), so that every rank takes the same
+    optimizer step.  ``aux`` holds the three masked means and ``loss``
+    their weighted sum."""
     home = next(model.parameters()).device
     sims = {}
-    for dev in mesh.devices:
+    for d in mesh.local:
+        dev = mesh.devices[d]
         sims.setdefault(dev, (tx_similarity.to(dev), bd_similarity.to(dev)))
 
     def step(shards, halos, seeds, randoms, weights):
-        ex_tx, _ = exchanges(halos)
+        ex_tx, _ = exchanges(halos, mesh)
         emb = sharded_forward(model, mesh, shards, ex_tx,
                               deterministic=False, seeds=seeds)
-        tx_ext = ex_tx([e["tx"] for e in emb])
+        tx_ext = ex_tx([None if e is None else e["tx"] for e in emb])
         stats = []
-        for d, (t, e, ext) in enumerate(zip(shards, emb, tx_ext)):
+        for d in mesh.local:
             tx_sim, bd_sim = sims[mesh.devices[d]]
             stats.append(L.loss_stats(
-                randoms(d, t), e, t, tx_sim, bd_sim, tx_margin=tx_margin,
-                sg_margin=sg_margin, sg_loss_type=sg_loss_type,
-                use_interior=False, sg_tx=torch.cat(ext)).to(home))
+                randoms(d, shards[d]), emb[d], shards[d], tx_sim, bd_sim,
+                tx_margin=tx_margin, sg_margin=sg_margin,
+                sg_loss_type=sg_loss_type, use_interior=False,
+                sg_tx=torch.cat(tx_ext[d])).to(home))
         w = torch.as_tensor(weights, dtype=torch.float32, device=home)
         tot = torch.stack(stats).detach().sum(dim=0)
+        if mesh.spans_ranks:
+            all_reduce_(tot)
         counts = tot[1::2].clamp(min=1.0)
         local = sum(w[0] * s[0] / counts[0] + w[1] * s[2] / counts[1]
                     + w[2] * s[4] / counts[2] for s in stats)
@@ -306,6 +328,8 @@ def make_train_step(model, optimizer, mesh: Mesh, tx_similarity,
         loss = w[0] * aux[0] + w[1] * aux[1] + w[2] * aux[2]
         optimizer.zero_grad(set_to_none=True)
         local.backward()
+        if mesh.spans_ranks:
+            all_reduce_gradients(list(model.parameters()))
         optimizer.step()
         return loss, aux
     return step
@@ -328,9 +352,11 @@ def make_sharded_train_step(model, optimizer, mesh: Mesh, tx_similarity,
                            sg_margin, sg_loss_type)
 
 
-def flat_predictions(per_shard: Sequence[tuple]) -> Dict[str, np.ndarray]:
-    """Per-shard predict outputs -> flat host arrays of the valid rows."""
-    idx, seg, sim, gene, mask = fetch_global(per_shard)
+def flat_predictions(per_shard: Sequence[Optional[tuple]], mesh: Mesh
+                     ) -> Dict[str, np.ndarray]:
+    """Per-shard predict outputs -> flat host arrays of the valid rows,
+    the same on every rank (:func:`~.mesh.fetch_global`)."""
+    idx, seg, sim, gene, mask = fetch_global(per_shard, mesh)
     m = mask.ravel()
     return {
         "row_index": idx.ravel()[m],
@@ -342,12 +368,13 @@ def flat_predictions(per_shard: Sequence[tuple]) -> Dict[str, np.ndarray]:
 
 def sharded_predict(model, graph: HostGraph, mesh: Mesh,
                     axis: str = "data") -> Dict[str, np.ndarray]:
-    """End to end: build the strips, put each on its device, run the
-    exchange forward and gather flat prediction arrays on the host."""
+    """End to end: build the strips, put this process's on their
+    devices, run the exchange forward and gather flat prediction arrays
+    on the host of every rank."""
     stacked, halo, dropped = build_sharded_graph(graph, mesh.shape[axis])
     if dropped.any():
         logger.warning("halo partition dropped %s non-adjacent-shard "
                        "edges (tt, sg, cand)", dropped.tolist())
     fn = make_sharded_predict(model, mesh, axis)
     return flat_predictions(fn(put_sharded(stacked, mesh),
-                               put_sharded(halo, mesh)))
+                               put_sharded(halo, mesh)), mesh)

@@ -36,7 +36,10 @@ the reduction between them is eager.
 ``SeggerTrainer.predict_whole_slide`` and ``fit_whole_slide`` run the
 slide itself, sharded into strips or a grid over a mesh of devices with a
 per-layer halo exchange (``parallel/``): exact receptive fields, no
-margins, one optimizer step per epoch.  They run eagerly.
+margins, one optimizer step per epoch.  They run eagerly, in one process
+or, after ``parallel.mesh.initialize_multihost``, over the ranks of a
+``torch.distributed`` group, each driving its own shards, with the same
+results.
 
 The trainer runs on CUDA unless the caller asks for the CPU
 (``device="cpu"``), and raises when no CUDA device is present rather
@@ -555,6 +558,10 @@ class SeggerTrainer:
     def _tile_dp_setup(self) -> None:
         """The replicas (made at first use, after any change of the
         parameters' tensors) with the model's current parameters."""
+        if self.mesh.spans_ranks:
+            raise ValueError("tile data parallelism runs in one process; "
+                             "a mesh that spans ranks serves the "
+                             "whole-slide paths")
         if self._replicas is None:
             self._replicas = Replicas(self.model, self.mesh)
             self._shard_pools = [
@@ -923,24 +930,26 @@ class SeggerTrainer:
     # ------------------------------------------------------------------
     def _whole_slide_mesh(self, mesh=None,
                          grid: Optional[Tuple[int, int]] = None):
-        """The mesh of a whole-slide call: with ``grid=(dx, dy)`` a grid
-        mesh over ``mesh``'s devices when it has ``dx * dy``, else over
+        """The mesh of a whole-slide call: with ``grid=(dx, dy)`` ``mesh``
+        laid out as the grid when it has ``dx * dy`` shards, else a grid
+        mesh over every rank's devices after ``initialize_multihost``, or
         every visible card (on the CPU, ``dx * dy`` shards on it); without
-        a grid ``mesh``, the trainer's, or every visible card (on the CPU,
-        one shard)."""
-        from ..parallel.mesh import make_grid_mesh, make_mesh
+        a grid ``mesh``, the trainer's, or the global mesh after
+        ``initialize_multihost``, or every visible card (on the CPU, one
+        shard)."""
+        from ..parallel.mesh import make_grid_mesh, make_mesh, world
 
-        cpu = self.device.type == "cpu"
+        one_cpu = self.device.type == "cpu" and world() is None
         if grid is not None:
             dx, dy = grid
             if mesh is not None and mesh.size == dx * dy:
-                devices = mesh.devices
-            else:
-                devices = [self.device] * (dx * dy) if cpu else None
-            return make_grid_mesh(dx, dy, devices)
+                return dataclasses.replace(mesh, axis_names=("x", "y"),
+                                           dims=(dx, dy))
+            return make_grid_mesh(
+                dx, dy, [self.device] * (dx * dy) if one_cpu else None)
         mesh = mesh or self.mesh
         if mesh is None:
-            mesh = make_mesh(devices=[self.device] if cpu else None)
+            mesh = make_mesh(devices=[self.device] if one_cpu else None)
         return mesh
 
     def predict_whole_slide(self, mesh=None,
@@ -951,13 +960,17 @@ class SeggerTrainer:
         into a ``grid=(dx, dy)`` (``parallel/grid.py``), and boundary
         rows are exchanged before every layer, so the result is exact,
         with no margins and no dedupe.  Flat arrays of (row_index,
-        cell_encoding, similarity, gene) for every transcript."""
+        cell_encoding, similarity, gene) for every transcript, the same on
+        every rank of a mesh that spans ranks, whose parameters must be
+        equal (``parallel.mesh.check_replicated``)."""
         from ..parallel.grid import grid_predict
         from ..parallel.halo import sharded_predict
+        from ..parallel.mesh import check_replicated
 
         if not self.initialized:
             raise RuntimeError("call init() or load_params() first")
         mesh = self._whole_slide_mesh(mesh, grid)
+        check_replicated(self.model, mesh)
         if grid is not None:
             return grid_predict(self.model, self.graph, mesh)
         return sharded_predict(self.model, self.graph, mesh)
@@ -983,17 +996,20 @@ class SeggerTrainer:
         back through it, loss statistics summed over shards into exact
         whole-slide masked means (``parallel.halo.make_train_step``).
         One optimizer step per epoch, the whole slide being the batch;
-        each shard draws its randomness from :meth:`shard_generator`.
-        Returns the history, with the JAX package's keys, which also
-        becomes ``self.history``; ``step_log`` gets each epoch's row and
-        host seconds."""
+        each shard draws its randomness from :meth:`shard_generator` with
+        its global shard id, so that a mesh that spans ranks draws what
+        one process draws.  There every rank must start from the same
+        parameters (``parallel.mesh.check_replicated`` raises otherwise)
+        and ends with the same ones.  Returns the history, with the JAX
+        package's keys, which also becomes ``self.history``; ``step_log``
+        gets each epoch's row and host seconds."""
         from ..parallel.grid import (
             build_grid_sharded_graph, make_grid_train_step,
         )
         from ..parallel.halo import (
             build_sharded_graph, make_sharded_train_step,
         )
-        from ..parallel.mesh import put_sharded
+        from ..parallel.mesh import check_replicated, put_sharded
 
         cfg = self.cfg
         max_epochs = cfg.max_epochs if max_epochs is None else max_epochs
@@ -1011,6 +1027,7 @@ class SeggerTrainer:
                            "shard edges (tt, sg, cand)", dropped.tolist())
         if not self.initialized:
             self.init()
+        check_replicated(self.model, mesh)
         shards, halos = put_sharded(stacked, mesh), put_sharded(halo, mesh)
         step = make_step(self.model, self.optimizer, mesh,
                          self.tx_similarity, self.bd_similarity,
@@ -1019,9 +1036,11 @@ class SeggerTrainer:
         history = []
         for epoch in range(max_epochs):
             t0 = time.perf_counter()
-            gens = [self.shard_generator(epoch, d) for d in range(mesh.size)]
+            gens = {d: self.shard_generator(epoch, d) for d in mesh.local}
             loss, aux = step(
-                shards, halos, [torch_seed_source(g) for g in gens],
+                shards, halos,
+                [torch_seed_source(gens[d]) if d in gens else None
+                 for d in range(mesh.size)],
                 lambda d, tile: L.draw_loss_randoms(tile, gens[d]),
                 self.weights(epoch, max_epochs))
             row = torch.cat([loss[None], aux]).tolist()

@@ -31,6 +31,7 @@ from segger_tpu.pipeline import ISTPipeline, PipelineConfig
 from segger_tpu.train.trainer import SeggerTrainer as JTrainer
 from segger_tpu.train.trainer import TrainConfig as JConfig
 
+from segger_tpu_torch.data.assemble import save_host_graph_plane
 from segger_tpu_torch.data.graph import TileGraph
 from segger_tpu_torch.models import losses as TL
 from segger_tpu_torch.models.convert import _flax_array, params_to_flax
@@ -40,6 +41,7 @@ from segger_tpu_torch.parallel import halo as thalo
 from segger_tpu_torch.parallel.mesh import make_mesh, put_sharded
 from segger_tpu_torch.train.trainer import SeggerTrainer, TrainConfig
 
+from tests import _torch_multiprocess_worker as worker
 from tests.test_halo import full_graph_tile
 from tests.test_torch_port_ops import port_host_graph, port_tile
 from tests.test_torch_port_train import _jax_uniforms, _t
@@ -443,20 +445,97 @@ def test_predict_backward_without_transposes_raises(graphs, models):
         emb[0]["tx"].sum().backward()
 
 
-def test_multihost_and_tile_dp_are_refused(graphs):
-    """Several processes are still refused, naming their ROADMAP.md item;
-    tile data parallelism over a mesh of CPU shards is ported: the mesh
+def test_tile_dp_mesh_rounds_tiles_per_step(graphs):
+    """Tile data parallelism over a mesh of CPU shards is ported: the mesh
     rounds ``tiles_per_step`` to its size, and an empty predict runs."""
-    from segger_tpu_torch.parallel.mesh import initialize_multihost
-
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        initialize_multihost()
     _, tg = graphs
     tr = SeggerTrainer(tg, TrainConfig(**MODEL), device="cpu",
                        mesh=make_mesh(devices=["cpu"] * 2))
     tr.init()
     assert tr.tile_dp and tr.cfg.tiles_per_step == 2
     assert all(v.size == 0 for v in tr.predict([]).values())
+
+
+# ---------------------------------------------------------------------
+# several processes, each case in processes of its own
+# (tests/_torch_multiprocess_worker.py, chip_smoke.py's ranks), so that
+# no process group is left in the test process; the cases run side by
+# side
+# ---------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def started_ranks(graphs, tmp_path_factory):
+    """The worker's cases, started: each case's directory and ranks."""
+    _, tg = graphs
+    started = {}
+    for mode, world in (("one-rank", 1), ("nccl-one-card", 2),
+                        ("checksum", 2)):
+        work = tmp_path_factory.mktemp(mode)
+        save_host_graph_plane(tg, work / "graph", with_edge_groups=False)
+        started[mode] = (work, worker.start_ranks(mode, work, world))
+    return started
+
+
+@pytest.fixture(scope="module")
+def rank_runs(started_ranks):
+    """Each case's directory and its ranks' ``(returncode, log)``."""
+    return {mode: (work, worker.wait_ranks(ranks))
+            for mode, (work, ranks) in started_ranks.items()}
+
+
+def test_chip_smoke_multiprocess_drive_on_the_cpu(started_ranks, tmp_path):
+    """``chip_smoke.py``'s phase 12 small on the CPU: two gloo ranks of
+    the script itself, one CPU shard each, against one process of two
+    CPU shards on its synthetic slide: predicts bit-equal at 2 strips and
+    a 2x1 grid, the fit's losses within ``GRAPH_STEP_RTOL``, the
+    parameters equal on both ranks."""
+    import chip_smoke
+
+    g = chip_smoke.synthetic_slide(n_tx=1200, n_cells=60, n_genes=20,
+                                   f_bd=12)
+    kw = dict(hidden_channels=8, out_channels=8, n_mid_layers=0)
+    state = chip_smoke.ws_trainer(g, None, torch.device("cpu"), "float32",
+                                  1, kw).model.state_dict()
+    mp = chip_smoke.drive_multiprocess(tmp_path, g, state, device="cpu",
+                                       epochs=2, train_kw=kw)
+    assert len(mp["ranks"]) == 2 and mp["backend"] == "gloo"
+    assert set(mp["ranks"][0]["preds"]) == {"strips", "2x1 grid"}
+    for r in mp["checks"].values():
+        assert r["device"] == "cpu" and len(r["losses"]) == 2
+        assert r["loss_rel"] <= chip_smoke.GRAPH_STEP_RTOL
+
+
+def _ranks_fail_with(runs, message):
+    for code, log in runs:
+        assert code != 0 and message in log, log[-4000:]
+
+
+def test_one_rank_group_predicts_as_no_group(rank_runs):
+    """``initialize_multihost()`` with no arguments reads torchrun's
+    variables; with one rank its default mesh is the rank's two CPU
+    shards, and ``predict_whole_slide`` equals the predict over two CPU
+    shards without a group, bit for bit."""
+    work, ((code, log),) = rank_runs["one-rank"]
+    assert code == 0 and "RANK_OK 0" in log, log[-4000:]
+    (res,) = worker.results(work, world=1)
+    assert res["world"] == 1 and res["owners"] == (0, 0)
+    assert res["group"].keys() == res["no group"].keys()
+    for k, v in res["no group"].items():
+        np.testing.assert_array_equal(res["group"][k], v, err_msg=k)
+
+
+def test_two_nccl_ranks_on_one_card_raise(rank_runs):
+    """Two NCCL ranks naming one card raise on both ranks, before any
+    collective and before CUDA is touched (so here, with no card)."""
+    _ranks_fail_with(rank_runs["nccl-one-card"][1],
+                     "NCCL cannot run two ranks on one card: ranks [0, 1]")
+
+
+def test_ranks_with_differing_parameters_raise(rank_runs):
+    """``fit_whole_slide`` checks that every rank holds the same
+    parameters before its first step: a rank that changed one weight
+    makes both ranks raise, naming it."""
+    _ranks_fail_with(rank_runs["checksum"][1],
+                     "parameter checksums differ across ranks: rank(s) [1]")
 
 
 def test_shard_generators_differ_and_repeat(graphs):

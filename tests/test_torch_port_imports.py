@@ -183,7 +183,8 @@ def _imported_modules(path: Path, top_level_only: bool = False):
 
 PORT_FILES = sorted((ROOT / "segger_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "bwd_device_ms.py",
-    ROOT / "tools" / "fwd_phase_ms.py", ROOT / "tools" / "pipeline_scale.py"]
+    ROOT / "tools" / "fwd_phase_ms.py", ROOT / "tools" / "pipeline_scale.py",
+    ROOT / "tests" / "_torch_multiprocess_worker.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -224,8 +225,10 @@ def test_metrics_and_validation_are_checked(rel):
 
 
 def test_parallel_modules_are_checked():
-    """Every module of the whole-slide layer is among the files whose
+    """Every module of the whole-slide layer, and the worker the
+    multi-process tests start their ranks with, are among the files whose
     imports are checked above."""
     for rel in ("__init__.py", "mesh.py", "_build_common.py", "halo.py",
-                "grid.py"):
+                "grid.py", "transport.py"):
         assert ROOT / "segger_tpu_torch" / "parallel" / rel in PORT_FILES
+    assert ROOT / "tests" / "_torch_multiprocess_worker.py" in PORT_FILES

@@ -35,7 +35,7 @@ from segger_tpu_torch.data.synthetic import write_synthetic_dataset
 from segger_tpu_torch.models.convert import _flax_array, params_to_flax
 from segger_tpu_torch.ops.postgather import seed_int32
 from segger_tpu_torch.parallel.mesh import (
-    initialize_multihost, make_mesh, shard_tile_batch,
+    Mesh, initialize_multihost, make_mesh, shard_tile_batch,
 )
 from segger_tpu_torch.train.graphs import tile_arrays
 from segger_tpu_torch.train.trainer import SeggerTrainer, TrainConfig
@@ -292,12 +292,25 @@ def test_shard_tile_batch_splits_the_tile_axis(small_pipeline, tiles):
         shard_tile_batch(batch, make_mesh(3, ["cpu"] * 3))
 
 
-def test_initialize_multihost_still_raises():
-    """Several processes are the part of ``parallel/`` still to come: the
-    error names its ROADMAP.md item."""
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1 item 9 .several processes"):
+def test_initialize_multihost_still_raises(small_pipeline, monkeypatch):
+    """Tile data parallelism stays in one process: without a rendezvous
+    (no arguments, no torchrun variables) ``initialize_multihost`` raises
+    before contacting anything, naming what is missing, and a tile-data-
+    parallel fit over a mesh that spans ranks raises."""
+    for key in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(ValueError, match="MASTER_ADDR, MASTER_PORT, "
+                       "WORLD_SIZE, RANK unset"):
         initialize_multihost()
+    spans = Mesh(tuple(torch.device("cpu") for _ in range(4)), ("data",),
+                 (4,), owners=(0, 0, 1, 1), rank=0)
+    assert spans.local == (0, 1) and spans.spans_ranks
+    tr = SeggerTrainer(small_pipeline[1], TrainConfig(**SMALL), device="cpu",
+                       mesh=spans)
+    tr.init()
+    with pytest.raises(ValueError, match="tile data parallelism runs in "
+                       "one process"):
+        tr.predict([])
 
 
 def test_segment_devices_4_on_the_cpu(tmp_path):
