@@ -25,7 +25,8 @@ Phases (any failure exits non-zero; nothing is caught):
    (CUDA events around the wrapper calls, and for every kernel and K5's
    library yardstick also ``device_ms``, the device time from
    torch.profiler, since at tile sizes the wrapper's host work outruns
-   the kernel), beside the least time the card could take for the same
+   the kernel, and for every kernel ``graph_ms`` from a CUDA graph of
+   the calls), beside the least time the card could take for the same
    work: K1 (edge-stage forward), K2 (its hashed-dropout mode), K3 (the
    edge-stage backward, no-dropout and hashed-dropout modes, run twice
    to show it repeats bit for bit), K4 (the keep-tensor mode of both),
@@ -165,7 +166,22 @@ Phases (any failure exits non-zero; nothing is caught):
    grid on four), against one process over the same cards.  The walls
    (rank start-up and ``initialize_multihost``, predicts, fit epochs)
    are printed beside one process's and the card's name and power
-   limit.
+   limit;
+13. the sparse-op helpers of ``ops`` that no main path runs
+   (``drive_helpers``): ``csr_spmm`` in its three weight forms,
+   ``csr_sddmm``, ``row_gather_1d``, ``take_rows``, ``csr_gather_t`` and
+   the COO ``segment_sum``, ``segment_max`` and ``segment_softmax``,
+   then the backwards of ``take_rows``, ``csr_gather_t`` and
+   ``csr_spmm``, on ``cuda:0`` over ``bench.py::build_tile``'s tt table
+   (50,000 transcripts, kNN 5, its transpose table and COO form) at F =
+   128, H = 2 in float32, each against the same call on the CPU
+   (``HELPER_ATOL`` + ``HELPER_RTOL`` of the magnitude, integers
+   equal), with its ``cuda_ms``; no kernel wrapper counts a launch.
+
+Every kernel record has ``device_ms`` (``kernel_trace``: the profiler
+drops the first device records of each trace, so a lead of spin kernels
+opens it) and ``graph_ms`` (``reps`` chained calls in one CUDA graph,
+replayed between two events) beside the event-timed ``ms``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel JSON record, and the line before that the card's
@@ -201,6 +217,9 @@ MEAN_STEP_RTOL = 2e-2             # GPU vs CPU mean loss of the CPU steps
 PIPE_CELLS, PIPE_GENES, PIPE_TX_PER_CELL = 10_000, 400, 20
 PIPE_EPOCHS = 2
 MIN_ACCURACY = 0.6                # against the true cells (test_e2e.py's)
+TRACE_LEAD = 64                   # spin kernels that open a trace
+LEAD_KERNEL = "spin_kernel"       # torch.cuda._sleep's kernel
+HELPER_ATOL = HELPER_RTOL = 1e-5   # phase 13: a helper, card against CPU
 ROOT = Path(__file__).resolve().parent
 
 
@@ -273,38 +292,64 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_trace(fn, reps: int, kernel: str | None = None,
+                 lead: int = TRACE_LEAD) -> tuple:
+    """One torch.profiler trace of ``lead`` spin kernels and then
+    ``reps`` calls of ``fn()``: the count of the calls' device records
+    (of the CUDA kernel whose name contains ``kernel``, or of every
+    device activity but the spins), their summed device milliseconds,
+    and how many spin records the trace kept.
+
+    The profiler drops the first device records of a trace, more of
+    them the longer the process has idled between traces (on an H100
+    80GB HBM3 at 700 W: none while traces follow each other, 11 after
+    seven 20 s pauses; ``tools/device_ms_trace.py``): the spins take the
+    loss, and while one of them is kept, every record of the calls is."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(lead):
+            torch.cuda._sleep(1)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation]
+    spins = sum(e.count for e in events if LEAD_KERNEL in e.key)
+    events = [e for e in events if LEAD_KERNEL not in e.key
+              and (kernel is None or kernel in e.key)]
+    return (sum(e.count for e in events),
+            sum(e.self_device_time_total for e in events) / 1e3, spins)
+
+
 def device_ms(fn, reps: int, kernel: str | None = None) -> float:
     """Mean device milliseconds of one call of ``fn()``, from
     torch.profiler over ``reps`` warm calls: the device's own time,
     whatever the host spends around it.  (``cuda_ms`` brackets the calls
     with events, so at small sizes it measures how fast the wrapper
     enqueues.)  With ``kernel``, the mean time of the traced launches of
-    the CUDA kernel whose name contains it, one a call (a trace now and
-    then loses a few of them, and then the mean is over those it holds,
-    at least half); with None, the sum over every device activity a call
-    launches (a library call of several kernels), whose count must be a
-    multiple of ``reps`` or the same in two traces in a row."""
+    the CUDA kernel whose name contains it, one a call (a trace whose
+    spin lead the profiler dropped whole may have lost a few of them,
+    and then the mean is over those it holds, at least half, while the
+    next try takes a lead four times as long); with None, the sum over
+    every device activity a call launches (a library call of several
+    kernels), whose count must be a multiple of ``reps`` or the same in
+    two traces in a row."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    counts, partial = [], (0, 0.0)
+    counts, partial, lead = [], (0, 0.0), TRACE_LEAD
     for _ in range(5):     # a trace now and then comes back without kernels
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and not e.is_user_annotation
-                  and (kernel is None or kernel in e.key)]
-        count = sum(e.count for e in events)
-        total = sum(e.self_device_time_total for e in events) / 1e3
+        count, total, spins = kernel_trace(fn, reps, kernel, lead)
         counts.append(count)
+        if not spins:
+            lead *= 4
         if count and count % reps == 0 and (kernel is None or count == reps):
             return total / reps
         # a library call whose launches differ from call to call, with a
@@ -319,6 +364,37 @@ def device_ms(fn, reps: int, kernel: str | None = None) -> float:
                          f"{kernel or 'any kernel'} traced in five tries, "
                          f"expected {'' if kernel else 'a multiple of '}"
                          f"{reps}")
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of one call of ``fn()``, the cross-check
+    of ``device_ms`` that no trace can lose: ``reps`` chained calls
+    captured in one CUDA graph, replayed 5 times between two events.
+    Between the calls the graph adds only its own launch gaps, not the
+    wrapper's host work, and it times every kernel a call launches.  The
+    capture runs the wrapper, so its launch counter moves as for
+    ``reps`` calls: callers put it back."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (5 * reps)
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -423,6 +499,7 @@ def check_edge_stage(idx, mask, n_src, dtype, rng, heads=2, hc=128,
     ms = cuda_ms(lambda: edge_stage_fwd(*args, **kw), 50)
     dev_ms = device_ms(lambda: edge_stage_fwd(*args, **kw), 20,
                        "edge_stage_fwd_kernel")
+    gr_ms = graph_ms(lambda: edge_stage_fwd(*args, **kw), 20)
     plain_ms = cuda_ms(lambda: edge_stage_fwd_reference(*args, **kw), 5)
     edge_stage_fwd.launches = launches     # the checks do not count
     size = xl.element_size()
@@ -437,7 +514,8 @@ def check_edge_stage(idx, mask, n_src, dtype, rng, heads=2, hc=128,
             "dtype": str(dtype).split(".")[-1],
             "max_abs_err": max(err_out.max().item(), err_alpha),
             "tol": f"out atol {atol} rtol {rtol}, alpha atol 1e-5",
-            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "ms": ms, "device_ms": dev_ms, "graph_ms": gr_ms,
+            "plain_ms": plain_ms,
             "bound_ms": b_ms,
             "bound_by": b_by, "bytes": n_bytes, "valid_slots": n_valid,
             "empty_rows": int(empty.sum())}
@@ -499,6 +577,7 @@ def check_edge_stage_bwd(idx, mask, n_src, dtype, rng, heads=2, hc=128,
     ms = cuda_ms(lambda: edge_stage_bwd(*args, **kw), 20)
     dev_ms = device_ms(lambda: edge_stage_bwd(*args, **kw), 20,
                        "edge_stage_bwd_kernel")
+    gr_ms = graph_ms(lambda: edge_stage_bwd(*args, **kw), 20)
     plain_ms = cuda_ms(lambda: edge_stage_bwd_reference(*args, **kw), 3)
     edge_stage_bwd.launches = launches
     size = xl.element_size()
@@ -520,7 +599,8 @@ def check_edge_stage_bwd(idx, mask, n_src, dtype, rng, heads=2, hc=128,
             "max_abs_err": max(errs.values()), "errs": errs,
             "tol": f"dg/dkeep atol {atol} rtol {rtol}, dxr and datt "
                    f"{datt_tol} of their max; two runs bit-equal",
-            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "ms": ms, "device_ms": dev_ms, "graph_ms": gr_ms,
+            "plain_ms": plain_ms,
             "bound_ms": b_ms,
             "bound_by": b_by, "bytes": n_bytes, "valid_slots": n_valid,
             "empty_rows": int((~mask.any(1)).sum())}
@@ -563,6 +643,7 @@ def check_score(idx, mask, n_bd, rng, f=64, dtype=None):
     ms = cuda_ms(lambda: score_max(tx, bd, idx, mask), 50)
     dev_ms = device_ms(lambda: score_max(tx, bd, idx, mask), 20,
                        "score_max_kernel")
+    gr_ms = graph_ms(lambda: score_max(tx, bd, idx, mask), 20)
     plain_ms = cuda_ms(lambda: score_max_reference(tx, bd, idx, mask), 5)
     library_ms = cuda_ms(library, 20)
     library_dev_ms = device_ms(library, 20)   # all of its kernels
@@ -580,7 +661,8 @@ def check_score(idx, mask, n_bd, rng, f=64, dtype=None):
     return {"n": n, "k": k, "dtype": str(dtype).split(".")[-1],
             "layout": layout,
             "max_abs_err": err, "tol": "slots equal, max atol 1e-5",
-            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "ms": ms, "device_ms": dev_ms, "graph_ms": gr_ms,
+            "plain_ms": plain_ms,
             "library_ms": library_ms, "library_device_ms": library_dev_ms,
             "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
             "valid_slots": n_valid, "empty_rows": int((~mask.any(1)).sum())}
@@ -632,6 +714,7 @@ def check_attention(idx, mask, xl, xr, att, bias, heads, lo=None):
         raise AssertionError(f"{name}: empty rows are not the bias")
     ms = cuda_ms(lambda: op(*args), 50)
     dev_ms = device_ms(lambda: op(*args), 20, "attn_fwd_kernel")
+    gr_ms = graph_ms(lambda: op(*args), 20)
     plain_ms = cuda_ms(lambda: plain(*args), 3)
     op.launches = launches                 # the checks do not count
     size, hc = xl.element_size(), xl.shape[1]
@@ -644,7 +727,8 @@ def check_attention(idx, mask, xl, xr, att, bias, heads, lo=None):
     return {"n": n, "k": k, "dtype": str(dt).split(".")[-1],
             "max_abs_err": err.max().item(),
             "tol": f"atol {tol} rtol {tol}, empty rows equal the bias",
-            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "ms": ms, "device_ms": dev_ms, "graph_ms": gr_ms,
+            "plain_ms": plain_ms,
             "bound_ms": b_ms,
             "bound_by": b_by, "bytes": n_bytes, "valid_slots": n_valid,
             "empty_rows": int(empty.sum()),
@@ -2703,6 +2787,165 @@ def multiprocess_phase(graph, state, card) -> list:
     return mps
 
 
+def helper_tile(n_tx=N_BENCH, seed=SEED):
+    """``bench.py::build_tile``'s tt table from the port's host modules:
+    ``n_tx`` transcripts uniform at Xenium density in strip-major order,
+    kNN 5 within 5 um, padded to a multiple of 8; and its transpose
+    table."""
+    import numpy as np
+
+    from segger_tpu_torch.data.neighbors_host import kdtree_neighbors
+    from segger_tpu_torch.data.partition import _strip_major_order
+    from segger_tpu_torch.ops.padded_csr import (
+        coo_to_padded_csr, transpose_csr,
+    )
+
+    rng = np.random.default_rng(seed)
+    ext = 600.0 * float(np.sqrt(n_tx / 50_000))
+    pos = rng.uniform(0, ext, (n_tx, 2)).astype(np.float32)
+    pos = pos[_strip_major_order(pos)]
+    src, dst = kdtree_neighbors(pos, max_k=5, max_dist=5.0)
+    tt = coo_to_padded_csr(dst, src, n_dst=n_tx, pad_to_multiple=8)
+    return tt, transpose_csr(tt, n_src=n_tx)
+
+
+def helper_calls(n_tx: int) -> dict:
+    """Phase 13's calls by name: every sparse-op helper of ``ops`` that
+    no main path runs, forward, then the backwards of ``take_rows``,
+    ``csr_gather_t`` and ``csr_spmm`` to their source rows through
+    ``torch.autograd.grad`` (each source row's gradient sums the few
+    slots that read it; the weights' gradient of ``csr_spmm``, a
+    128-term sum whose order the device picks, is held against JAX on
+    the CPU by ``tests/test_torch_port_ops_helpers.py``).
+    Each takes a dict of tensors on one device (``helper_inputs``) and
+    the tt table and its transpose there."""
+    import torch
+
+    from segger_tpu_torch import ops
+    from segger_tpu_torch.ops.gather_agg import take_rows
+
+    def grad(out, wrt, ct):
+        return torch.autograd.grad(out, wrt, ct)
+
+    def leaf(t):
+        return t.detach().requires_grad_()
+
+    return {
+        "csr_spmm": lambda t, c, ct: ops.csr_spmm(t["x"], c),
+        "csr_spmm (N, K)": lambda t, c, ct: ops.csr_spmm(t["x"], c, t["w2"]),
+        "csr_spmm (N, K, H)": lambda t, c, ct: ops.csr_spmm(t["x"], c,
+                                                            t["w3"]),
+        "csr_sddmm": lambda t, c, ct: ops.csr_sddmm(t["x"], t["xd"], c),
+        "row_gather_1d": lambda t, c, ct: ops.row_gather_1d(t["table"],
+                                                            t["pos"]),
+        "take_rows": lambda t, c, ct: take_rows(t["x"], t["src"]),
+        "csr_gather_t": lambda t, c, ct: ops.csr_gather_t(t["x"], c, ct),
+        "segment_sum": lambda t, c, ct: ops.segment_sum(t["msg"], t["dst"],
+                                                        n_tx),
+        "segment_max": lambda t, c, ct: ops.segment_max(t["msg"], t["dst"],
+                                                        n_tx),
+        "segment_softmax": lambda t, c, ct: ops.segment_softmax(
+            t["logits"], t["dst"], n_tx),
+        "take_rows backward": lambda t, c, ct: grad(
+            take_rows(x := leaf(t["x"]), t["src"]), x, t["ct_rows"]),
+        "csr_gather_t backward": lambda t, c, ct: grad(
+            ops.csr_gather_t(x := leaf(t["x"]), c, ct), x, t["ct_gather"]),
+        "csr_spmm (N, K, H) backward": lambda t, c, ct: grad(
+            ops.csr_spmm(x := leaf(t["x"]), c, t["w3"]), x, t["ct_spmm"]),
+    }
+
+
+def helper_inputs(tt, n_bd: int, heads: int, hc: int, seed=SEED) -> dict:
+    """Phase 13's inputs on the host, made with numpy from ``seed``:
+    source and destination rows (F = ``hc``), per-slot weights of both
+    forms, a 1-D table of ``n_bd`` rows and positions that reach into
+    its 128-row pad, per-edge messages and logits of the table's COO
+    form, and the backwards' cotangents."""
+    import numpy as np
+    import torch
+
+    from segger_tpu_torch.ops.padded_csr import padded_csr_to_coo
+
+    rng = np.random.default_rng(seed)
+    n_tx = tt.n_dst
+    dst, src = padded_csr_to_coo(tt)
+    m_pad = -(-n_bd // 128) * 128
+    floats = {"x": (n_tx, hc), "xd": (n_tx, hc), "w2": tt.idx.shape,
+              "w3": (*tt.idx.shape, heads), "table": (n_bd,),
+              "msg": (dst.size, hc), "logits": (dst.size, heads),
+              "ct_rows": (src.size, hc), "ct_gather": (*tt.idx.shape, hc),
+              "ct_spmm": (n_tx, heads, hc)}
+    out = {k: torch.from_numpy(rng.standard_normal(shape, np.float32))
+           for k, shape in floats.items()}
+    out["pos"] = torch.from_numpy(rng.integers(0, m_pad, n_tx,
+                                               dtype=np.int32))
+    out["dst"], out["src"] = torch.from_numpy(dst), torch.from_numpy(src)
+    return out
+
+
+def helper_err(got, want, where: str) -> float:
+    """Largest difference of two outputs (tensors or tuples of them);
+    raises unless integers are equal and floats within ``HELPER_ATOL``
+    + ``HELPER_RTOL`` of the reference's magnitude, infinities in the
+    same places."""
+    import torch
+
+    if isinstance(want, (tuple, list)):
+        return max(helper_err(g, w, where) for g, w in zip(got, want))
+    got = got.detach().cpu()
+    want = want.detach()
+    if not want.is_floating_point():
+        if not torch.equal(got, want):
+            raise AssertionError(f"{where}: integer outputs differ")
+        return 0.0
+    inf = torch.isinf(want)
+    if not (torch.equal(torch.isinf(got), inf)
+            and torch.equal(got[inf], want[inf])):
+        raise AssertionError(f"{where}: infinities differ")
+    err = (got[~inf] - want[~inf]).abs()
+    if not (err <= HELPER_ATOL + HELPER_RTOL * want[~inf].abs()).all():
+        raise AssertionError(f"{where}: err {err.max().item()}")
+    return err.max().item() if err.numel() else 0.0
+
+
+def drive_helpers(device=None, n_tx=N_BENCH, n_bd=2_500, heads=2, hc=128,
+                  seed=SEED) -> dict:
+    """Phase 13: every sparse-op helper of ``ops`` that no main path runs
+    (``helper_calls``), on ``device`` (``cuda:0`` by default) and on the
+    CPU from the same inputs, over ``bench.py::build_tile``'s tt table
+    (``helper_tile``) and its COO form, in float32 at F = ``hc``, H =
+    ``heads``.  Each must agree with its CPU run (``helper_err``), the
+    COO form read back from the device table must equal the host's, and
+    no kernel wrapper may count a launch.  Returns each helper's error
+    and, on a CUDA device, its ``cuda_ms``."""
+    import numpy as np
+    import torch
+
+    from segger_tpu_torch.ops.padded_csr import padded_csr_to_coo
+
+    device = torch.device(device or "cuda:0")
+    before = read_counts()
+    tt, tt_t = helper_tile(n_tx, seed)
+    host = helper_inputs(tt, n_bd, heads, hc, seed)
+    on = {k: v.to(device) for k, v in host.items()}
+    c, ct = tt.to(device), tt_t.to(device)
+    c_cpu, ct_cpu = tt.to("cpu"), tt_t.to("cpu")
+    rec = {}
+    for name, call in helper_calls(n_tx).items():
+        err = helper_err(call(on, c, ct), call(host, c_cpu, ct_cpu), name)
+        rec[name] = {"max_abs_err": err, "cuda_ms": (
+            cuda_ms(lambda: call(on, c, ct), 10)
+            if device.type == "cuda" else None)}
+    coo = padded_csr_to_coo(c)
+    if not all(np.array_equal(a, b) for a, b in zip(
+            coo, padded_csr_to_coo(tt))):
+        raise AssertionError("padded_csr_to_coo of the device table")
+    if read_counts() != before:
+        raise AssertionError("the helpers launched a kernel wrapper")
+    return {"n": n_tx, "k": tt.k, "edges": int(coo[0].size), "f": hc,
+            "heads": heads, "n_table": n_bd, "helpers": rec}
+
+
 def whole_slide_only(card) -> int:
     """``--whole-slide``: phase 7's pipeline run for its graph and
     weights, then phases 10, 11 and 12, with no timing of kernels; on a
@@ -3410,16 +3653,25 @@ def main(argv) -> int:
     mps = multiprocess_phase(graph7, state7, card)
     del graph7, state7
 
+    # -- phase 13: the sparse-op helpers no main path runs, on the card
+    # against the CPU, over bench.py's tile table
+    helpers = drive_helpers()
+    print(f"helpers [N={helpers['n']}, K={helpers['k']}, "
+          f"{helpers['edges']} edges, F={helpers['f']}, H={helpers['heads']}"
+          f", float32, {card}] " + json.dumps(helpers["helpers"]))
+
     def summary(kernel, tile_prefix, modes=None):
         rs = [r for k, w, r in checks if k == kernel]
+        # the checks of that tile ("tile-dp shard ..." is not "tile ...")
         tile_rs = [r for k, w, r in checks if k == kernel
-                   and w.startswith(tile_prefix)
+                   and (w == tile_prefix or w.startswith(tile_prefix + " "))
                    and (modes is None or r.get("mode") in modes)]
         return {
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             # one layer's launches on one tile, at the main path's shapes
             "ms": sum(r["ms"] for r in tile_rs),
             "device_ms": sum(r["device_ms"] for r in tile_rs),
+            "graph_ms": sum(r["graph_ms"] for r in tile_rs),
             "plain_ms": sum(r["plain_ms"] for r in tile_rs),
             "bound_ms": sum(r["bound_ms"] for r in tile_rs),
             "bound_by": "bytes" if all(r["bound_by"] == "bytes"
@@ -3434,9 +3686,9 @@ def main(argv) -> int:
         return rec
 
     sc_tile = [r for k, w, r in checks if k == "K5"
-               and w.startswith("tile")][0]
+               and w == "tile cand"][0]
     sc_pipe = [r for k, w, r in checks if k == "K5"
-               and w.startswith("pipeline tile")][0]
+               and w == "pipeline tile cand"][0]
     # device memory a slide-table call takes beyond its output
     slide_extra = {k: r["extra_bytes"] for k, w, r in checks
                    if w == "slide"}

@@ -92,6 +92,13 @@ class TileGraph:
     def n_bd(self) -> int:
         return self.bd_x.shape[-2]
 
+    def n_edges(self):
+        """Total valid message-passing edges (tt + tb [+ bt])."""
+        e = self.tt.mask.sum() + self.tb.mask.sum()
+        if self.bt is not None:
+            e = e + self.bt.mask.sum()
+        return e
+
     def replace(self, **kw) -> "TileGraph":
         return dataclasses.replace(self, **kw)
 

@@ -774,3 +774,59 @@ def first_fit_decreasing_bucketed(
     out = [np.asarray(b) for b in bins]
     rng.shuffle(out)
     return out
+
+
+def harmonic_k(
+    values: np.ndarray,
+    max_num: float,
+    k: int = 6,
+    skip_too_big: bool = False,
+) -> List[np.ndarray]:
+    """Harmonic-k online packing (the reference's, present there but
+    unused by default; no path of the port calls it either).
+
+    Items arrive in order.  An item with size fraction f = v/max_num is
+    "large" when f > 1/k: it falls in the harmonic interval
+    (1/(j+1), 1/j] with j = floor(1/f), and large items of class j are
+    packed j to a bin (a class bin is emitted as soon as it holds j
+    items).  Items with f <= 1/k are "small" and packed first-fit
+    against each small bin's remaining capacity.  The class bins still
+    open come after the full ones, then the small bins.
+
+    Raises ValueError for k < 2, and for items <= 0 or > max_num unless
+    ``skip_too_big`` is set, which drops them.
+    """
+    if k < 2:
+        raise ValueError("k must be >= 2")
+    values = np.asarray(values, dtype=float)
+    bad = (values <= 0) | (values > max_num)
+    if bad.any() and not skip_too_big:
+        raise ValueError("all item sizes must be > 0 and <= max_num")
+    stream = [(i, v) for i, v in enumerate(values) if not bad[i]]
+
+    bins: List[list] = []
+    open_class: dict = {}            # j -> partially filled class bin
+    small_bins: List[list] = []
+    small_room: List[float] = []
+    for i, v in stream:
+        f = v / max_num
+        if f > 1.0 / k:
+            j = int(1.0 // f)
+            cur = open_class.setdefault(j, [])
+            cur.append(i)
+            if len(cur) == j:
+                bins.append(cur)
+                open_class[j] = []
+        else:
+            for b, room in enumerate(small_room):
+                if v <= room:
+                    small_bins[b].append(i)
+                    small_room[b] -= v
+                    break
+            else:
+                small_bins.append([i])
+                small_room.append(max_num - v)
+
+    bins.extend(cur for cur in open_class.values() if cur)
+    bins.extend(small_bins)
+    return [np.asarray(b) for b in bins]

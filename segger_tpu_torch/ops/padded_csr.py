@@ -46,6 +46,12 @@ class PaddedCSR:
     def k(self) -> int:
         return self.idx.shape[1]
 
+    @property
+    def n_edges(self):
+        """Valid slots: a 0-d tensor for tensors, a NumPy scalar on the
+        host."""
+        return self.mask.sum()
+
     def to(self, device) -> "PaddedCSR":
         return PaddedCSR(as_tensor(self.idx, device),
                          as_tensor(self.mask, device))
@@ -117,3 +123,28 @@ def transpose_csr(
         srcs, flat_pos, n_dst=n_src, k=k,
         pad_to_multiple=pad_to_multiple,
     )
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def padded_csr_to_coo(csr: PaddedCSR) -> tuple:
+    """Inverse of :func:`coo_to_padded_csr` (host side): ``(dst, src)``
+    int64 arrays of the valid edges in row-major order.  A table of
+    tensors is read back to the host first."""
+    idx, mask = _host(csr.idx), _host(csr.mask)
+    n_dst, k = idx.shape
+    rows = np.repeat(np.arange(n_dst, dtype=np.int64), k).reshape(n_dst, k)
+    return rows[mask], idx[mask].astype(np.int64)
+
+
+def pad_rows(csr: PaddedCSR, n_dst: int) -> PaddedCSR:
+    """The table padded to ``n_dst`` rows with all-invalid rows (host
+    side); ``csr`` itself when it has that many rows already."""
+    idx, mask = _host(csr.idx), _host(csr.mask)
+    cur = idx.shape[0]
+    if cur >= n_dst:
+        return csr
+    pad = ((0, n_dst - cur), (0, 0))
+    return PaddedCSR(idx=np.pad(idx, pad), mask=np.pad(mask, pad))

@@ -1,13 +1,15 @@
 """The port stands alone: ``segger_tpu_torch`` and ``chip_smoke.py``
 import neither JAX nor the JAX package, nothing of scikit-learn or h5py
 at module level (the GPU machine has neither), and a small fit and
-prediction, the segmentation pipeline from a synthetic slide to its
-table, the command line from a raw Xenium directory to the exported
-boundaries, the out-of-core path (columnar transcripts, the memmapped
-graph plane, ``segment --low-memory --graph-cache``, the native spatial
-core) and the whole-slide halo-exchange path run with all of them
-blocked, the table's quality report and contamination QC
-(``metrics/``, ``validation/``) included."""
+prediction run with all of them blocked.  The other drives run the same
+way, each in a subprocess of its own (``run_standalone``), from
+``tests/test_torch_port_standalone_*.py``: the segmentation pipeline from
+a synthetic slide to its table (with the table's quality report and
+contamination QC, ``metrics/`` and ``validation/``), the command line from
+a raw Xenium directory to the exported boundaries, the out-of-core path
+(columnar transcripts, the memmapped graph plane, ``segment --low-memory
+--graph-cache``, the native spatial core) and the whole-slide
+halo-exchange path."""
 import ast
 import subprocess
 import sys
@@ -22,7 +24,9 @@ BLOCKED = ("jax", "flax", "optax", "segger_tpu")
 # that need them
 NOT_ON_CARD = ("sklearn", "h5py")
 
-_SCRIPT = textwrap.dedent("""
+# every drive runs in a subprocess of its own with the modules above
+# blocked, and ends by checking that none of them was imported
+_PRELUDE = textwrap.dedent("""
     import sys
     for name in {blocked!r}:
         sys.modules[name] = None          # any import of it raises
@@ -30,6 +34,29 @@ _SCRIPT = textwrap.dedent("""
     import numpy as np
     import segger_tpu_torch
     import chip_smoke
+""")
+_EPILOGUE = textwrap.dedent("""
+    assert not any(m.split(".")[0] in {blocked!r}
+                   for m in sys.modules if sys.modules[m] is not None)
+    print("OK")
+""")
+
+# the small pipeline of chip_smoke.py's phase 7, whose graph, weights,
+# truth and table the CLI, out-of-core and whole-slide drives start from
+PIPELINE = textwrap.dedent("""
+    import tempfile
+    PIPE_KW = dict(device="cpu", n_cells=60, n_genes=20, epochs=1,
+                   pipeline_kw=dict(cells_embedding_size=8,
+                                    genes_min_counts=5, cells_min_counts=3,
+                                    tiling_nodes_per_tile=600,
+                                    prediction_graph_buffer_ratio=0.2),
+                   train_kw=dict(hidden_channels=16, out_channels=16,
+                                 n_mid_layers=0))
+    with tempfile.TemporaryDirectory() as out:
+        r = chip_smoke.drive_pipeline(out, **PIPE_KW)
+""")
+
+_PREDICT = textwrap.dedent("""
     from segger_tpu_torch.data.partition import (
         build_tiling, make_fit_tiles, make_predict_tiles)
     from segger_tpu_torch.train.trainer import SeggerTrainer, TrainConfig
@@ -79,96 +106,24 @@ _SCRIPT = textwrap.dedent("""
         emb = tr.model(tile, capture_attention=True, intermediates=inter)
     assert torch.isfinite(emb["tx"]).all()
     assert sum(k.endswith("/attention") for k in inter) == 4  # 2 layers
-
-    # the segmentation pipeline (chip_smoke.py's phase 7, small, on the
-    # CPU): make_synthetic -> ISTPipeline.load() -> run(device="cpu",
-    # save_anndata=False) -> the checks of the table
-    import tempfile
-    with tempfile.TemporaryDirectory() as out:
-        r = chip_smoke.drive_pipeline(
-            out, device="cpu", n_cells=60, n_genes=20, epochs=1,
-            pipeline_kw=dict(cells_embedding_size=8, genes_min_counts=5,
-                             cells_min_counts=3, tiling_nodes_per_tile=600,
-                             prediction_graph_buffer_ratio=0.2),
-            train_kw=dict(hidden_channels=16, out_channels=16,
-                          n_mid_layers=0))
-    assert r["accuracy"] > 0.6 and r["n_tiles"][1] > 1
-    assert r["quality"]["report"]["ari"] > 0.5
-    assert r["quality"]["median_percent_contamination"] >= 0
-    assert set(r["walls"]) == {{"make-data", "features", "graph", "tiling",
-                               "fit", "predict", "write"}}
-
-    # the command line (chip_smoke.py's phase 8, small, on the CPU): the
-    # same slide as a raw Xenium directory -> segment --device cpu
-    # --no-anndata -> export transcripts boundaries; the graph from the
-    # vendor files equals the pipeline's from the in-memory tables
-    with tempfile.TemporaryDirectory() as work:
-        c = chip_smoke.drive_cli(
-            work, device="cpu", n_cells=60, n_genes=20, epochs=1,
-            pipeline_kw=dict(cells_embedding_size=8, genes_min_counts=5,
-                             cells_min_counts=3, tiling_nodes_per_tile=600,
-                             prediction_graph_buffer_ratio=0.2),
-            train_kw=dict(hidden_channels=16, out_channels=16,
-                          n_mid_layers=0), graph=r["graph"])
-    assert c["accuracy"] > 0.6 and c["n_rings"] > 0
-    assert set(c["walls"]) == {{"write-vendor", "read", "features + graph",
-                               "fit", "predict", "write",
-                               "export-boundaries"}}
-    assert "cv2" not in sys.modules     # a Xenium run never imports it
-
-    # the out-of-core path (chip_smoke.py's phase 9, small, on the CPU):
-    # the slide as spooled columnar chunks -> the graph equals the
-    # pipeline's, the memmapped plane -> fit, predict_streaming,
-    # write_dense; the MERSCOPE directory through segment --low-memory
-    # --graph-cache (prepare in a child process, then the cached run);
-    # the native core (built by g++ at first use) against the KDTree
-    # and SpGEMM plain versions
-    with tempfile.TemporaryDirectory() as work:
-        o = chip_smoke.drive_outofcore(
-            work, device="cpu", n_cells=60, n_genes=20, epochs=1,
-            pipeline_kw=dict(cells_embedding_size=8, genes_min_counts=5,
-                             cells_min_counts=3, tiling_nodes_per_tile=600,
-                             prediction_graph_buffer_ratio=0.2),
-            train_kw=dict(hidden_channels=16, out_channels=16,
-                          n_mid_layers=0), graph=r["graph"],
-            table=r["table"])
-    assert o["agreement"] == 1.0 and o["accuracy"] > 0.6
-    assert set(o["cli"]["walls"]) == {{"load-graph", "fit", "predict",
-                                      "write"}}
-    assert {{"graph.tx_knn", "graph.prediction"}} <= set(o["substages"])
-    assert set(o["branches"]["walls"]) == {{"native", "kdtree"}}
-    from segger_tpu_torch import native
-    assert native.library_path().exists()
-
-    # the whole-slide path (chip_smoke.py's phase 10, small, on the CPU):
-    # predict_whole_slide at 1 strip, 4 strips and a 2x2 grid in bf16 and
-    # f32, the surrogate gradient, fit_whole_slide, and segment
-    # --distributed-predict --distributed-train
-    with tempfile.TemporaryDirectory() as work:
-        w = chip_smoke.drive_whole_slide(
-            work, r["graph"], r["state"], r["truth"], r["table"],
-            device="cpu", n_cells=60, n_genes=20, epochs=1,
-            pipeline_kw=dict(cells_embedding_size=8, genes_min_counts=5,
-                             cells_min_counts=3, tiling_nodes_per_tile=600,
-                             prediction_graph_buffer_ratio=0.2),
-            train_kw=dict(hidden_channels=16, out_channels=16,
-                          n_mid_layers=0))
-    assert set(w["checks"]) == {{"1 strip", "4 strips", "2x2 grid"}}
-    assert w["grad_err"] <= chip_smoke.WS_GRAD_ATOL
-    assert w["cli"]["accuracy"] > 0.6 and len(w["cli"]["history"]) == 1
-    assert not any(m.split(".")[0] in {blocked!r}
-                   for m in sys.modules if sys.modules[m] is not None)
-    print("OK")
 """)
 
 
-def test_port_predicts_with_jax_blocked():
-    res = subprocess.run(
-        [sys.executable, "-c",
-         _SCRIPT.format(blocked=BLOCKED + NOT_ON_CARD, root=str(ROOT))],
-        capture_output=True, text=True, timeout=300, cwd=ROOT,
-    )
+def run_standalone(body: str) -> None:
+    """``body`` in a fresh interpreter with jax, the JAX package,
+    scikit-learn and h5py blocked, within 300 s; it must finish and have
+    imported none of them."""
+    script = (_PRELUDE + body + _EPILOGUE).format(
+        blocked=BLOCKED + NOT_ON_CARD, root=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", script],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=ROOT)
     assert res.returncode == 0 and "OK" in res.stdout, res.stderr[-3000:]
+
+
+def test_port_predicts_with_jax_blocked():
+    """A small fit and prediction, and the attention slice."""
+    run_standalone(_PREDICT)
 
 
 def _imported_modules(path: Path, top_level_only: bool = False):
@@ -183,6 +138,7 @@ def _imported_modules(path: Path, top_level_only: bool = False):
 
 PORT_FILES = sorted((ROOT / "segger_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "bwd_device_ms.py",
+    ROOT / "tools" / "device_ms_trace.py",
     ROOT / "tools" / "fwd_phase_ms.py", ROOT / "tools" / "pipeline_scale.py",
     ROOT / "tests" / "_torch_multiprocess_worker.py"]
 

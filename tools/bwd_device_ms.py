@@ -3,7 +3,7 @@
 ``chip_smoke.py``'s phase-2 shapes, for the kernels of this checkout or of
 another one, measured by this checkout's ``chip_smoke`` checks (each
 checked against its plain version, then ``device_ms`` from torch.profiler
-and the event-timed ``ms``).  Needs one CUDA device.
+and the event-timed ``ms``, with ``graph_ms``).  Needs one CUDA device.
 
     python3 tools/bwd_device_ms.py                  # the backward, here
     python3 tools/bwd_device_ms.py --root OTHER     # OTHER's kernels
@@ -130,9 +130,9 @@ def main(argv) -> int:
             print(json.dumps({"tag": args.tag, "kernel": kernel,
                               "where": where, **{
                                   key: r[key] for key in (
-                                      "n", "k", "dtype", "device_ms", "ms",
-                                      "bound_ms", "max_abs_err",
-                                      "extra_bytes")}}))
+                                      "n", "k", "dtype", "device_ms",
+                                      "graph_ms", "ms", "bound_ms",
+                                      "max_abs_err", "extra_bytes")}}))
         return 0
     if args.kernel == "score":
         for n, k, n_bd, dt in SCORE_RUNS:
@@ -141,9 +141,9 @@ def main(argv) -> int:
                                   dtype=getattr(torch, dt))
             print(json.dumps({"tag": args.tag, "kernel": "K5", **{
                 key: r[key] for key in (
-                    "n", "k", "dtype", "device_ms", "ms", "bound_ms",
-                    "max_abs_err", "library_device_ms", "valid_slots",
-                    "layout")}}))
+                    "n", "k", "dtype", "device_ms", "graph_ms", "ms",
+                    "bound_ms", "max_abs_err", "library_device_ms",
+                    "valid_slots", "layout")}}))
         return 0
     check = (smoke.check_edge_stage_bwd if args.kernel == "bwd"
              else smoke.check_edge_stage)
@@ -153,7 +153,8 @@ def main(argv) -> int:
         r = check(idx, mask, n_src, dt, rng, mode=mode)
         print(json.dumps({"tag": args.tag, "kernel": args.kernel, **{
             key: r[key] for key in ("mode", "n", "k", "dtype", "device_ms",
-                                    "ms", "bound_ms", "max_abs_err")}}))
+                                    "graph_ms", "ms", "bound_ms",
+                                    "max_abs_err")}}))
     return 0
 
 
