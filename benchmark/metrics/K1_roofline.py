@@ -1,0 +1,9 @@
+"""K1, the edge-stage forward without dropout (mode 0): its launches' least time at the card's HBM rate (or float32
+rate), from the benchmark's byte counts of each launch's table, over the
+kernel's summed device time in the trace, in percent."""
+
+
+def read(view):
+    if view.kind != "predict":
+        return None
+    return view.roofline("K1")

@@ -1,0 +1,9 @@
+"""K2, the edge-stage forward with hashed dropout (mode 1): its launches' least time at the card's HBM rate (or float32
+rate), from the benchmark's byte counts of each launch's table, over the
+kernel's summed device time in the trace, in percent."""
+
+
+def read(view):
+    if view.kind != "fit":
+        return None
+    return view.roofline("K2")
