@@ -1,0 +1,11 @@
+"""Host milliseconds of a step's staging once its pinned slot is free:
+the batch's copies into the slot, the random draws, the upload's
+enqueue (the program's span ``stage``, one call a step), a step of
+the traced passes."""
+
+
+def read(view):
+    if view.kind != "predict" or "stage" not in view.stages:
+        return None
+    seconds, steps = view.stages["stage"]
+    return 1e3 * seconds / steps if steps else None

@@ -22,6 +22,7 @@ import numpy as np
 import pandas as pd
 
 from ..io.fields import TrainingTranscriptFields
+from ..utils_profiling import substage
 from .features import anndata_from_transcripts
 from .threshold import threshold_yen, threshold_li
 
@@ -30,6 +31,7 @@ logger = logging.getLogger(__name__)
 _SAMPLE_CAP = 10_000_000  # reference: writer.py:215
 
 
+@substage("write.thresholds")
 def compute_gene_thresholds(
     sim: np.ndarray,
     gene: np.ndarray,
@@ -71,6 +73,7 @@ def compute_gene_thresholds(
     return thresholds, failed, global_thr
 
 
+@substage("write.assign")
 def assign_dense(
     best_sim: np.ndarray,
     best_enc: np.ndarray,
@@ -137,6 +140,7 @@ def assign_dense(
     return df
 
 
+@substage("write.assign")
 def assign_transcripts_to_cells(
     predictions: Dict[str, np.ndarray],
     cell_ids: np.ndarray,
@@ -240,10 +244,11 @@ class SegmentationWriter:
         seg = assign_transcripts_to_cells(
             predictions, cell_ids, gene_names
         )
-        out = seg.drop(columns=[TrainingTranscriptFields().feature])
-        out.to_parquet(
-            self.output_directory / "segger_segmentation.parquet"
-        )
+        with substage("write.parquet"):
+            out = seg.drop(columns=[TrainingTranscriptFields().feature])
+            out.to_parquet(
+                self.output_directory / "segger_segmentation.parquet"
+            )
         if self.save_anndata and transcripts is not None:
             self.write_anndata(seg, transcripts)
         return seg
@@ -263,10 +268,11 @@ class SegmentationWriter:
         seg = assign_dense(
             best_sim, best_enc, gene_by_row, cell_ids, gene_names
         )
-        out = seg.drop(columns=[TrainingTranscriptFields().feature])
-        out.to_parquet(
-            self.output_directory / "segger_segmentation.parquet"
-        )
+        with substage("write.parquet"):
+            out = seg.drop(columns=[TrainingTranscriptFields().feature])
+            out.to_parquet(
+                self.output_directory / "segger_segmentation.parquet"
+            )
         return seg
 
     def write_anndata(self, seg: pd.DataFrame, transcripts: pd.DataFrame):

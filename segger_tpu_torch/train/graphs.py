@@ -55,6 +55,7 @@ from ..ops.gatv2_attn import gatv2_attention
 from ..ops.padded_csr import PaddedCSR
 from ..ops.postgather import edge_stage_bwd, edge_stage_fwd
 from ..ops.score import score_max
+from ..utils_profiling import substage
 
 # the kernel wrappers whose ``launches`` count (an int, or a dict by mode)
 _COUNTED = (edge_stage_fwd, edge_stage_bwd, score_max, gatv2_attention,
@@ -236,7 +237,8 @@ class CompiledStep:
         if not self.cuda:
             return self.inputs
         slot, done = self.slots[self._slot]
-        done.synchronize()
+        with substage("device.wait"):
+            done.synchronize()
         return slot
 
     def upload(self) -> None:
@@ -282,7 +284,8 @@ class CompiledStep:
             self._host.copy_(out, non_blocking=True)
             done = torch.cuda.Event()
             done.record()
-        done.synchronize()
+        with substage("device.wait"):
+            done.synchronize()
         return self._host
 
 

@@ -12,6 +12,8 @@ import queue
 import threading
 from typing import Callable, Iterable, Iterator, Optional
 
+from ..utils_profiling import substage
+
 _SENTINEL = object()
 
 
@@ -84,7 +86,9 @@ class PrefetchIterator:
         self._consumed = True
         try:
             while True:
-                out = self._q.get()
+                # the consumer's wait for the next result
+                with substage("prefetch.wait"):
+                    out = self._q.get()
                 if out is _SENTINEL:
                     if self._err is not None:
                         raise self._err

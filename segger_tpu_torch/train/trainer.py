@@ -77,7 +77,7 @@ from ..models.gatv2 import BufferSeedSource, torch_seed_source
 from ..ops.gather_agg import score_candidates
 from ..ops.padded_csr import PaddedCSR
 from ..ops.postgather import seed_int32
-from ..utils_profiling import substage
+from ..utils_profiling import count, substage
 from .checkpoint import load_checkpoint, save_checkpoint
 from ..parallel.mesh import Replicas, reduce_gradients
 from .graphs import (
@@ -328,7 +328,9 @@ class SeggerTrainer:
         key = (id(spec), dataclasses.astuple(bucket))
         hit = self._tile_cache.get(key)
         if hit is not None:
+            count("tile_cache.hit")
             return hit[1]
+        count("tile_cache.miss")
         with substage("extract.tile"):
             tile = extract_tile(self.graph, spec, bucket)
         if not cache:
@@ -696,30 +698,41 @@ class SeggerTrainer:
         draws go tile by tile in global tile order either way."""
         steps = steps if isinstance(steps, list) else [steps]
         inps = [s.staging() for s in steps]
-        g = batch.tx_gene.shape[0] // len(steps)
-        for d, inp in enumerate(inps):
-            for dst, src in zip(tile_arrays(inp.batch), tile_arrays(batch)):
-                dst.copy_(torch.from_numpy(src[d * g:(d + 1) * g]))
-        if gen is not None:
-            per_tile = inps[0].seeds.shape[0] // g
-            draw = torch_seed_source(gen)
-            words = [[] for _ in inps]
-            for b in range(batch.tx_gene.shape[0]):
-                d, t = divmod(b, g)
-                inp = inps[d]
-                words[d] += [seed_int32(draw()) for _ in range(per_tile)]
-                for dst, u in zip((inp.tx_u[t], inp.bd_u[t], inp.sg_u[t]),
-                                  L.draw_loss_uniforms(
-                                      inp.tx_u.shape[2], inp.bd_u.shape[2],
-                                      inp.sg_u.shape[1], gen)):
-                    dst.copy_(u)
-            for inp, ws in zip(inps, words):
-                if ws:
-                    inp.seeds.copy_(torch.tensor(ws, dtype=torch.int32))
-                inp.weights.copy_(torch.from_numpy(weights))
-        for s, inp in zip(steps, inps):
-            s.upload()
-            self.bytes_to_device += sum(t.nbytes for t in inp.tensors())
+        with substage("stage"):
+            g = batch.tx_gene.shape[0] // len(steps)
+            for d, inp in enumerate(inps):
+                for dst, src in zip(tile_arrays(inp.batch),
+                                    tile_arrays(batch)):
+                    dst.copy_(torch.from_numpy(src[d * g:(d + 1) * g]))
+            if gen is not None:
+                with substage("stage.draws"):
+                    self._draw(inps, g, batch.tx_gene.shape[0], gen)
+                for inp in inps:
+                    inp.weights.copy_(torch.from_numpy(weights))
+            for s, inp in zip(steps, inps):
+                s.upload()
+                self.bytes_to_device += sum(t.nbytes for t in inp.tensors())
+
+    @staticmethod
+    def _draw(inps: List[StepInputs], g: int, n_tiles: int,
+              gen: torch.Generator) -> None:
+        """Per tile, in global tile order, its launches' seed words (train
+        steps), then its loss uniforms, into the inputs of its shard."""
+        per_tile = inps[0].seeds.shape[0] // g
+        draw = torch_seed_source(gen)
+        words = [[] for _ in inps]
+        for b in range(n_tiles):
+            d, t = divmod(b, g)
+            inp = inps[d]
+            words[d] += [seed_int32(draw()) for _ in range(per_tile)]
+            for dst, u in zip((inp.tx_u[t], inp.bd_u[t], inp.sg_u[t]),
+                              L.draw_loss_uniforms(
+                                  inp.tx_u.shape[2], inp.bd_u.shape[2],
+                                  inp.sg_u.shape[1], gen)):
+                dst.copy_(u)
+        for inp, ws in zip(inps, words):
+            if ws:
+                inp.seeds.copy_(torch.tensor(ws, dtype=torch.int32))
 
     def _run(self, kind: str, step: CompiledStep) -> torch.Tensor:
         if step.cuda and step.graph is None:
@@ -746,7 +759,8 @@ class SeggerTrainer:
         buf = torch.empty((depth, 4), device=self.device)
 
         def read_back():
-            got = buf[:len(arrived)].tolist()
+            with substage("device.wait"):
+                got = buf[:len(arrived)].tolist()
             now = time.perf_counter()
             for t0, rec in zip(arrived, got):
                 rows.append(rec)

@@ -6,10 +6,13 @@ The port's copy of ``segger_tpu.utils_profiling``:
     writes a Chrome trace (open it in Perfetto or ``chrome://tracing``)
   - :class:`StageTimer`: wall-clock per-stage counters with derived
     rates (edges/s, transcripts/s)
-  - :func:`substage` / :func:`set_substage_timer`: long host stages
-    inside the library (the graph build's kNN and candidate join, the
-    PhenoGraph kNN / Jaccard / Louvain, tile planning and extraction)
-    report into one process-wide timer when a caller installs one
+  - :func:`substage` / :func:`count` / :func:`set_substage_timer`: host
+    spans and counters inside the library (the graph build's kNN and
+    candidate join, the PhenoGraph kNN / Jaccard / Louvain, tile planning
+    and extraction, the step loop's waits and staging, the tile cache's
+    hits, the writer's parts) report into one process-wide timer when a
+    caller installs one; a span is also a ``record_function`` on the
+    ``torch.profiler`` timeline whenever a profiler records
   - :class:`AnonRSSSampler`: the high-water mark of anonymous resident
     memory, the number that counts on a memmapped graph plane
   - :func:`device_memory_stats`: ``torch.cuda.memory_stats`` of the
@@ -59,6 +62,8 @@ class StageTimer:
         self.seconds: Dict[str, float] = defaultdict(float)
         self.items: Dict[str, float] = defaultdict(float)
         self.calls: Dict[str, int] = defaultdict(int)
+        # spans come from the main thread and the prefetch thread at once
+        self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def stage(self, name: str, items: float = 0.0):
@@ -69,9 +74,16 @@ class StageTimer:
             self.add(name, time.perf_counter() - t0, items)
 
     def add(self, name: str, seconds: float, items: float = 0.0):
-        self.seconds[name] += seconds
-        self.items[name] += items
-        self.calls[name] += 1
+        with self._lock:
+            self.seconds[name] += seconds
+            self.items[name] += items
+            self.calls[name] += 1
+
+    def count(self, name: str, n: int = 1):
+        """A counter: ``n`` more calls of ``name`` at no seconds."""
+        with self._lock:
+            self.seconds[name] += 0.0
+            self.calls[name] += n
 
     def rates(self) -> Dict[str, float]:
         """items/second per stage (0 when no items recorded)."""
@@ -115,13 +127,30 @@ def set_substage_timer(timer: Optional[StageTimer]) -> Optional[StageTimer]:
 @contextlib.contextmanager
 def substage(name: str, items: float = 0.0):
     """Record a library-internal stage into the installed sub-stage
-    timer; a no-op beyond one global read when none is installed."""
+    timer, and as a ``record_function`` span whenever a ``torch.profiler``
+    records; with neither, a no-op beyond one global read and the
+    profiler's flag."""
     t = _SUBSTAGES
-    if t is None:
-        yield
-    else:
-        with t.stage(name, items=items):
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not prof._is_profiler_enabled:
+        if t is None:
             yield
+        else:
+            with t.stage(name, items=items):
+                yield
+        return
+    with prof.record_function(name), (
+            t.stage(name, items=items) if t is not None
+            else contextlib.nullcontext()):
+        yield
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the installed sub-stage timer's counter ``name``; a
+    no-op beyond one global read when none is installed."""
+    t = _SUBSTAGES
+    if t is not None:
+        t.count(name, n)
 
 
 def _status_gb(key: str) -> Optional[float]:
