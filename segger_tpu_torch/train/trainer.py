@@ -92,9 +92,11 @@ logger = logging.getLogger(__name__)
 class TrainConfig:
     """Hyperparameters (defaults follow the reference's LitISTEncoder /
     ISTDataModule), as in ``segger_tpu.train.trainer.TrainConfig``.
-    ``scan_steps = S > 0`` queues S training steps before their loss rows
-    come back to the host (the JAX package runs them in one dispatch);
-    the result equals ``scan_steps = 0``, which reads every step's."""
+    A step's loss row comes back to the host one step late, while the
+    device runs the next step.  ``scan_steps = S > 0`` reads the rows S
+    at a time, still behind the newest step (the JAX package runs S steps
+    in one dispatch); the result equals ``scan_steps = 0``, which reads
+    every step's on its own."""
 
     in_channels: int = 16
     hidden_channels: int = 64
@@ -194,7 +196,8 @@ class SeggerTrainer:
         self.optimizer: Optional[torch.optim.Adam] = None
         self.history: List[Dict] = []
         # per training step: (epoch, [loss, loss_tx, loss_bd, loss_sg],
-        # host seconds from the batch's arrival to its loss on the host)
+        # host seconds from the step's staging to its loss row on the
+        # host, which comes back one step late)
         self.step_log: List[Tuple[int, List[float], float]] = []
         # epoch-spanning tile-extraction cache (TrainConfig.tile_cache_gb)
         self._tile_cache: Dict = {}
@@ -752,33 +755,59 @@ class SeggerTrainer:
                    weights: np.ndarray, cache: bool, depth: int,
                    epoch: Optional[int] = None) -> List[List[float]]:
         """Run the compiled ``kind`` step ("train" or "eval") on every
-        plan's batch, reading the loss rows back ``depth`` steps at a
-        time; training steps also go into ``step_log``."""
+        plan's batch, reading the loss rows back one step late, so that
+        the device runs a step while the host stages the next.  As each
+        step is enqueued, its row is queued for a host ring (on CUDA a
+        pinned one, the copy ordered after the step on its stream); once
+        ``depth`` rows wait behind a newer step, they are read in one
+        ``device.wait``, and the rest at the pass's end.  Training steps
+        also go into ``step_log``, their seconds from the step's staging
+        to its row on the host."""
         rows: List[List[float]] = []
-        arrived: List[float] = []
-        buf = torch.empty((depth, 4), device=self.device)
+        ring: Optional[torch.Tensor] = None
+        done: List[Optional[torch.cuda.Event]] = []
+        # (staging start, ring slot) of each row not read yet, oldest first
+        sent: List[Tuple[float, int]] = []
 
-        def read_back():
+        def read_back(n: int) -> None:
+            group = sent[:n]
             with substage("device.wait"):
-                got = buf[:len(arrived)].tolist()
+                last = done[group[-1][1]]
+                if last is not None:
+                    last.synchronize()
+                got = ring[[slot for _, slot in group]].tolist()
             now = time.perf_counter()
-            for t0, rec in zip(arrived, got):
+            for (t0, _), rec in zip(group, got):
                 rows.append(rec)
                 if epoch is not None:
                     self.step_log.append((epoch, rec, now - t0))
-            arrived.clear()
+            # every row but the newest step's was read after a later step
+            # was enqueued
+            lagged = n if len(sent) > n else n - 1
+            if lagged:
+                count("loss_row.lagged", lagged)
+            del sent[:n]
 
         with PrefetchIterator(
                 plans, lambda p: self._build_batch(p, cache)) as batches:
-            for batch in batches:
+            for i, batch in enumerate(batches):
                 t0 = time.perf_counter()
-                buf[len(arrived)].copy_(
-                    self._loss_row(kind, batch, gen, weights))
-                arrived.append(t0)
-                if len(arrived) == depth:
-                    read_back()
-        if arrived:
-            read_back()
+                row = self._loss_row(kind, batch, gen, weights)
+                if ring is None:
+                    ring = torch.empty((depth + 1, *row.shape),
+                                       dtype=row.dtype, pin_memory=row.is_cuda)
+                    done = [torch.cuda.Event() if row.is_cuda else None
+                            for _ in range(depth + 1)]
+                slot = i % (depth + 1)
+                # on CUDA the copy follows the step on the row's stream
+                ring[slot].copy_(row, non_blocking=True)
+                if row.is_cuda:
+                    done[slot].record(torch.cuda.current_stream(row.device))
+                sent.append((t0, slot))
+                if len(sent) > depth:
+                    read_back(depth)
+        if sent:
+            read_back(len(sent))
         return rows
 
     def iter_batches(self, tiles: Sequence[TileSpec], shuffle: bool,
@@ -817,8 +846,13 @@ class SeggerTrainer:
         segment, the cosine loss weights, one Adam step per batch with
         dropout on, then a deterministic validation pass; one history
         record per epoch with the JAX package's keys.  Every step is a
-        compiled step (a replayed CUDA graph on CUDA); with
-        ``scan_steps = S > 0`` the loss rows come back S steps at a time.
+        compiled step (a replayed CUDA graph on CUDA).  A step's loss row
+        comes back one step late, after the next step is enqueued, so the
+        host stages step n + 1 while the device runs step n; with
+        ``scan_steps = S > 0`` the rows come back S at a time.  Each pass
+        ends with its rows read, so ``history`` and ``on_epoch_end`` see
+        whole epochs; ``step_log``'s seconds run from a step's staging to
+        its row on the host.
         ``on_epoch_end(epoch, trainer)`` runs after each record.  With
         ``checkpoint_dir``, ``latest.npz`` is resumed from at the epoch
         after its own and written every ``checkpoint_every`` epochs."""

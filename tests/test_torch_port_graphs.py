@@ -5,7 +5,8 @@ On the CPU: the buffer-fed step bodies against the eager ``train_step`` /
 stage with its seed words in a tensor against the same words as ints,
 the transfer counters, and a resume into the optimizer.  On the card
 (``gpu``): replays with new seed words against eager calls, one capture
-per new bucket shape, and the resume into a capturable Adam.  No JAX is
+per new bucket shape, the resume into a capturable Adam, and the loss
+rows read one step late against one read-back at each pass's end.  No JAX is
 imported, so on a CUDA machine these run as
 
     python -m pytest --noconftest -m gpu tests/test_torch_port_graphs.py
@@ -27,6 +28,7 @@ from segger_tpu_torch.ops.postgather import (
 from segger_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from segger_tpu_torch.train.graphs import tile_arrays
 from segger_tpu_torch.train.trainer import SeggerTrainer, TrainConfig, _means
+from segger_tpu_torch.utils_profiling import StageTimer, set_substage_timer
 
 # 16 fit tiles: 7 train (a 7-step epoch), 9 val
 MODEL = dict(hidden_channels=16, out_channels=16, n_mid_layers=0,
@@ -318,3 +320,30 @@ def test_new_bucket_shape_captures_once(slide, cuda):
         caps.append(tr.captures["train"])
     assert caps == [1, 1, 2, 2, 2]
     assert len(tr._steps) == 2
+
+
+@pytest.mark.gpu
+def test_rows_read_one_step_late_equal_one_read_at_the_pass_end(slide, cuda):
+    """A 2-epoch fit on the card whose loss rows come back one step late
+    gives the history and step rows, bit for bit, of the same fit with
+    every pass's rows read once at its end (``scan_steps`` past the
+    epoch's 7 steps): the same graphs replay in the same order on one
+    stream.  Both read every row but each of the 4 passes' last after a
+    later step was enqueued.  The parameters are not compared: two fits
+    of the same code on the card already differ in their last bits."""
+    g, fit, _ = slide
+    runs = []
+    for scan_steps in (0, 100):
+        tr = _trainer(g, device=cuda, scan_steps=scan_steps)
+        timer = StageTimer()
+        prev = set_substage_timer(timer)
+        try:
+            history = tr.fit(fit, max_epochs=2)
+        finally:
+            set_substage_timer(prev)
+        _, val = tr.split_tiles(fit)
+        steps = len(tr.step_log) + 2 * len(tr._batch_plans(val))
+        assert len(tr.step_log) == 14
+        assert timer.calls["loss_row.lagged"] == steps - 4
+        runs.append((history, [rec for _, rec, _ in tr.step_log]))
+    assert runs[0] == runs[1]

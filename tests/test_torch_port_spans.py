@@ -2,8 +2,9 @@
 installed ``StageTimer`` records them over a tiny CPU fit of two epochs,
 a predict and the table's writes: one ``stage`` a step, ``stage.draws``
 a loss step, ``prefetch.wait`` each batch waited for, ``device.wait``
-each loss-row read-back (the only wait on the device the CPU has), the
-tile cache's hits and misses, and the writer's three parts once a
+each loss-row read-back (the only wait on the device the CPU has),
+``loss_row.lagged`` each row read after a later step, the tile cache's
+hits and misses, and the writer's three parts once a
 write."""
 import numpy as np
 import pytest
@@ -72,6 +73,8 @@ def test_stage_once_a_step_and_draws_once_a_loss_step(run):
     assert _delta(predicted, fitted, "stage.draws") == 0
     # the CPU's one wait on the device: each loss row read back
     assert fitted["device.wait"] == train_steps + eval_steps
+    # every row read one step late but the last of each of the 4 passes
+    assert fitted["loss_row.lagged"] == train_steps + eval_steps - 4
     # each batch waited for, and the end of each pass
     assert fitted["prefetch.wait"] == train_steps + eval_steps + 4
     assert _delta(predicted, fitted, "prefetch.wait") == predict_steps + 1
