@@ -2,17 +2,21 @@
 seeds, in one process, the program's sound readings, the control's (the
 reference in float8 in the program's place; its thresholds in float32)
 and the planted faults (in the reference put in the program's place):
-for a training cell half of each batch left out, for a predict cell the
-wrong thresholds of ``references/segger.py::gene_thresholds``.  Not run
-by the benchmark's own runs.
+for a training cell half of each tile's rows left out (and, on batches
+of several tiles, half of the tiles, and the exchange of gradients
+between the cards left out), for a predict cell the wrong thresholds of
+``references/segger.py::gene_thresholds``.  Not run by the benchmark's
+own runs.
 
     python3 benchmark/calibrate.py --workload <cell> --seeds 1 2 3 \
-        [--out chiprun_out/calibrate.jsonl]
+        [--device cuda:0] [--out readings.jsonl]
     python3 benchmark/calibrate.py --workload <cell> --seeds <n> --table
 
-Each seed's line: ``{"seed", "program", "control"[, "half",
-"loss_gaps"][, "thr_faults"]}``, ``loss_gaps`` each compared step's loss
-gap of each side.  ``--table`` reads only the thresholds, of the table
+``--device`` puts a cell of several chips on one device, its mesh's
+shards all there: the same steps and arithmetic on one card.  Each
+seed's line: ``{"seed", "program", "control"[, "half", "half_tiles",
+"no_exchange", "loss_gaps"][, "thr_faults"]}``, ``loss_gaps`` each
+compared step's loss gap of each side.  ``--table`` reads only the thresholds, of the table
 that the cell's last run (of that seed) wrote, with the slide made again
 from the seed and no set-up of the program.
 """
@@ -41,6 +45,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     ap.add_argument("--out", default=None)
     ap.add_argument("--table", action="store_true")
+    ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
     cell = harness.cell_spec(args.workload)
     kind = cell["traffic"]["kind"]
@@ -53,7 +58,7 @@ def main(argv=None) -> int:
             line["seconds"] = time.perf_counter() - t0
             emit(line, args.out)
             continue
-        env = harness.Env(cell, seed, None)
+        env = harness.Env(cell, seed, args.device)
         if kind == "fit":
             setup(env, first_epoch_only=True)
         else:
@@ -75,6 +80,12 @@ def main(argv=None) -> int:
                 "control": compare.loss_gaps(
                     compare.reference_fit(env, "fp8"), ref),
                 "half": compare.loss_gaps(half, ref)}
+            if env.recorder.steps[0]["batch"].tx_gene.shape[0] > 1:
+                for key, fault in (("half_tiles", {"half_tiles": True}),
+                                   ("no_exchange", {"exchange": False})):
+                    side = compare.reference_fit(env, "f32", **fault)
+                    line[key] = compare.fit_readings(side, ref)
+                    line["loss_gaps"][key] = compare.loss_gaps(side, ref)
         else:
             line["thr_faults"] = threshold_lines(env)["thr_faults"]
         line["seconds"] = time.perf_counter() - t0

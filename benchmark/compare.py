@@ -3,11 +3,12 @@ produced against the plain reference (``references/``), at the timed
 sizes.
 
 - ``fit``: the first ``compare_steps`` training steps of the set-up
-  epoch, which ran through ``fit``'s own staging and compiled step, are
-  followed by the reference from the benchmark's weights, on the tables
-  and random numbers those steps were staged with: the first step's
-  loss, each leaf's first gradient (from Adam's first moment after one
-  step) and each leaf's change over the steps, by the norms' gap.
+  epoch, which ran through ``fit``'s own staging and compiled step (on a
+  mesh, every shard's), are followed by the reference from the
+  benchmark's weights, on every tile's table and the random numbers
+  those steps were staged with: the first step's loss, each leaf's
+  first gradient (from Adam's first moment after one step) and each
+  leaf's change over the steps, by the norms' gap.
 - ``predict``: after the window, the written table's rows of a sample of
   tiles (the largest and others drawn from the seed) against the
   reference's forward and scoring on those tiles' tables: each row's
@@ -76,14 +77,29 @@ def table_faults(env, tiles: List[dict]) -> int:
 
 
 # -- fit ----------------------------------------------------------------------
-def reference_fit(env, precision: str, half: bool = False) -> dict:
+def step_tiles(step) -> List[dict]:
+    """Every tile of a recorded step's batch, in global tile order."""
+    from harness import tile_dict
+
+    return [tile_dict(step["batch"], b)
+            for b in range(step["batch"].tx_gene.shape[0])]
+
+
+def reference_fit(env, precision: str, half: bool = False,
+                  half_tiles: bool = False, exchange: bool = True) -> dict:
     """The reference's steps on the recorded steps' tables and random
     numbers, from the benchmark's weights: ``{"losses", "grad1",
-    "params_after", "params_before"}`` (leaves on the CPU).  ``half``
-    plants a fault: the tx loss over the first half of each tile's
-    interior rows only, its mean taken over them."""
+    "params_after", "params_before"}`` (leaves on the CPU).  Each step
+    takes every tile of its batch, each with its own seed words and
+    uniforms, into one joint loss.  ``half`` plants a fault: the tx loss
+    over the first half of each tile's interior rows only, its mean taken
+    over them; ``half_tiles`` another, on a batch of several tiles: the
+    statistics of the first half of its tiles only; ``exchange=False``
+    a third, on a batch of several tiles: the gradient of the joint loss
+    through the first tile's statistics alone, as the first card's when
+    the shards' gradients are not summed."""
     import torch
-    from harness import tile_dict, to_torch
+    from harness import to_torch
 
     ref, dev, model = env.reference, env.device, env.model_cfg
     p = {k: v.detach().clone().float() for k, v in env.weights.items()}
@@ -94,15 +110,22 @@ def reference_fit(env, precision: str, half: bool = False) -> dict:
     weights = ref.loss_weights(0, env.model_cfg["max_epochs"], model).to(dev)
     losses, grad1 = [], None
     for s in env.recorder.steps:
-        tile = to_torch(tile_dict(s["batch"], 0), dev)
-        if half:
-            rows = tile["tx_interior"] & tile["tx_valid"]
-            rank = torch.cumsum(rows.long(), 0)
-            tile["tx_interior"] = rows & (rank <= rows.sum() // 2)
-        seeds = [tuple(int(w) for w in row) for row in s["seeds"].tolist()]
-        loss, grads = ref.train_step(
-            p, state, tile, seeds, s["tx_u"][0].to(dev), s["bd_u"][0].to(dev),
-            s["sg_u"][0].to(dev), weights, *sims, model, precision)
+        tiles = step_tiles(s)
+        words = [tuple(int(w) for w in row) for row in s["seeds"].tolist()]
+        per_tile = len(words) // len(tiles)
+        inputs = []
+        for b, t in enumerate(tiles[:len(tiles) // 2] if half_tiles
+                              else tiles):
+            tile = to_torch(t, dev)
+            if half:
+                rows = tile["tx_interior"] & tile["tx_valid"]
+                rank = torch.cumsum(rows.long(), 0)
+                tile["tx_interior"] = rows & (rank <= rows.sum() // 2)
+            inputs.append((tile, words[b * per_tile:(b + 1) * per_tile],
+                           s["tx_u"][b].to(dev), s["bd_u"][b].to(dev),
+                           s["sg_u"][b].to(dev)))
+        loss, grads = ref.train_step(p, state, inputs, weights, *sims, model,
+                                     precision, exchange)
         losses.append(loss)
         if grad1 is None:
             grad1 = {k: g.cpu() for k, g in grads.items()}
@@ -126,10 +149,11 @@ def loss_gaps(side: dict, ref: dict) -> List[float]:
 def fit_readings(side: dict, ref: dict) -> Dict[str, float]:
     """loss1_gap: the first step's relative loss gap (the later steps'
     gaps carry the parameters' drift apart, by the sign of Adam's
-    normalized updates, and swing from seed to seed); grad_gap and
-    change_gap: the worst leaf's gap of norms against the larger of its
-    reference norm and the median leaf's."""
-    loss1_gap = loss_gaps(side, ref)[0]
+    normalized updates, and swing from seed to seed); loss_gap_worst:
+    the worst of the compared steps' gaps, for a traffic mix that limits
+    it; grad_gap and change_gap: the worst leaf's gap of norms against
+    the larger of its reference norm and the median leaf's."""
+    gaps = loss_gaps(side, ref)
     g_ref = {k: _norm(v) for k, v in ref["grad1"].items()}
     med_g = float(np.median(list(g_ref.values())))
     grad_gap = max(abs(_norm(side["grad1"][k]) - g) / max(g, med_g)
@@ -141,19 +165,17 @@ def fit_readings(side: dict, ref: dict) -> Dict[str, float]:
     change_gap = max(
         abs(_norm(side["params_after"][k] - before[k]) - d) / max(d, med_d)
         for k, d in d_ref.items())
-    return {"loss1_gap": loss1_gap, "grad_gap": grad_gap,
-            "change_gap": change_gap}
+    return {"loss1_gap": gaps[0], "loss_gap_worst": max(gaps),
+            "grad_gap": grad_gap, "change_gap": change_gap}
 
 
 def fit_check(env, control: bool = False) -> Dict[str, float]:
-    from harness import tile_dict
-
     _float32()
     ref = reference_fit(env, "f32")
     side = reference_fit(env, "fp8") if control else program_fit(env)
     out = fit_readings(side, ref)
     out["table_faults"] = table_faults(
-        env, [tile_dict(s["batch"], 0) for s in env.recorder.steps])
+        env, [t for s in env.recorder.steps for t in step_tiles(s)])
     return out
 
 

@@ -38,6 +38,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 
 import hooks
+import tracing
 
 ROOT = Path(__file__).resolve().parent
 REPO = ROOT.parent
@@ -120,9 +121,10 @@ def _port():
     import segger_tpu_torch.utils_profiling as profiling
     import segger_tpu_torch.ops.postgather as postgather
     import segger_tpu_torch.ops.score as score
+    import segger_tpu_torch.parallel.mesh as mesh
     return dict(pipeline=pipeline, trainer=trainer, partition=partition,
                 writer=writer, profiling=profiling, postgather=postgather,
-                score=score)
+                score=score, mesh=mesh)
 
 
 def launch_counts(port) -> Dict[str, int]:
@@ -197,7 +199,13 @@ def check_panel(transcripts, graph, config: dict):
 # -- the environment of one run ----------------------------------------------
 class Env:
     """The slide, the program's pipeline and trainer, the benchmark's
-    weights: everything set-up makes."""
+    weights: everything set-up makes.
+
+    A cell on several chips runs the program's tile data parallelism: a
+    mesh of one shard a card (``SeggerTrainer(mesh=)``) over the first
+    ``chips`` CUDA devices, or ``chips`` shards on ``device`` where one is
+    given (the CPU in tests; one card in ``calibrate.py``), the model and
+    its optimizer on the trainer's device, as the program places them."""
 
     def __init__(self, cell: dict, seed: int, device):
         self.cell, self.seed = cell, seed
@@ -220,9 +228,18 @@ class Env:
         check_panel(self.slide.transcripts, self.graph, self.config)
         tcfg = port["trainer"].TrainConfig(**self.model_cfg,
                                            seed=seed % 2**31)
-        self.trainer = port["trainer"].SeggerTrainer(self.graph, tcfg,
-                                                     device=device)
+        chips = cell["workload"]["chips"]
+        mesh = None
+        if chips > 1:
+            mesh = port["mesh"].make_mesh(
+                chips, None if device is None else [device] * chips)
+        self.trainer = port["trainer"].SeggerTrainer(
+            self.graph, tcfg, device=device, mesh=mesh)
         self.device = self.trainer.device
+        # every device the run uses: on a mesh its cards (the trainer's
+        # among them), each once
+        self.devices = (list(dict.fromkeys(mesh.devices)) if mesh
+                        else [self.device])
         if self.trainer.in_channels != self.model_cfg["in_channels"]:
             raise SpecError(
                 f"the gene embedding is {self.trainer.in_channels} wide, the "
@@ -350,19 +367,11 @@ KINDS = {"fit": (fit_setup, fit_window), "predict": (predict_setup,
 
 
 # -- one run -----------------------------------------------------------------
-def _sync_fn(device):
-    import torch
-    if device.type == "cuda":
-        return lambda: torch.cuda.synchronize(device)
-    return lambda: None
-
-
 def traced_window(env: Env, units: int, sync) -> "object":
     """``units`` whole epochs or passes under the profiler, with the
     program's stage timer installed and its host work labelled, reduced
     to a :class:`tracing.TraceView`."""
     import counts
-    import tracing
 
     port = env.port
     kind = env.traffic["kind"]
@@ -383,12 +392,14 @@ def traced_window(env: Env, units: int, sync) -> "object":
         with hooks.labelled(env.trainer, on_batch):
             env.traced = True
             w, events = tracing.profile(
-                lambda: window(env, 0.0, max_units=units, sync=sync))
+                lambda: window(env, 0.0, max_units=units, sync=sync),
+                env.devices)
     finally:
         port["profiling"].set_substage_timer(prev)
         env.traced = False
     after = launch_counts(port)
-    red = tracing.reduce(events)
+    cards = env.cell["workload"]["chips"]
+    red = tracing.reduce(events, cards)
     if not built or not red["steps"]:
         raise hooks.HookError(
             f"the traced {kind} units built {len(built)} batch layouts and "
@@ -407,7 +418,11 @@ def traced_window(env: Env, units: int, sync) -> "object":
     least = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K5": 0.0}
     flops = 0.0
     for plan, batch, times in built.values():
-        for b, spec in enumerate(plan[0]):
+        # a batch's tiles are all training or all validation tiles; the
+        # tiles that round it up to ``tiles_per_step`` (no valid row, no
+        # model FLOPs) launch the kernels all the same
+        train = id(plan[0][0]) in train_ids
+        for b in range(batch.tx_gene.shape[0]):
             t = tile_dict(batch, b)
             s = counts.tile_kernel_seconds(t, model, size)
             if kind == "predict":
@@ -415,7 +430,7 @@ def traced_window(env: Env, units: int, sync) -> "object":
                 least["K5"] += times * s["score"]
                 flops += times * counts.tiles_flops([t], model, f_bd, 1,
                                                     score=True)
-            elif id(spec) in train_ids:
+            elif train:
                 least["K2"] += times * s["fwd"]
                 least["K3"] += times * s["bwd"]
                 flops += times * counts.tiles_flops([t], model, f_bd, 3)
@@ -425,17 +440,28 @@ def traced_window(env: Env, units: int, sync) -> "object":
     view = tracing.TraceView(
         kind=kind, units=w["units"], window_s=red["window_s"],
         busy_s=red["busy_s"], kernels=red["kernels"], steps=red["steps"],
-        launches=launches,
+        launches=launches, cards=cards,
         least_s=least, flops=flops,
         stages={k: (timer.seconds[k], timer.calls[k]) for k in timer.seconds},
         write_s=w.get("write_s", 0.0),
         rows_written=w["units"] * len(env.graph.tx_index)
         if kind == "predict" else 0)
     recs = {k: len(view._records(k)) for k in tracing.KERNELS}
-    print(f"trace: {red['spins']} of {tracing.LEAD} spin records kept; "
+    print(f"trace: {red['spins']} of {tracing.LEAD * cards} spin records "
+          f"kept; "
           f"kernel records fwd {recs['fwd']} bwd {recs['bwd']} score "
-          f"{recs['score']} against launches {launches}", file=sys.stderr)
+          f"{recs['score']} against launches {launches}; busy s by card "
+          + " ".join(f"{c}:{b:.4f}" for c, b in red["busy_by_card"].items())
+          + f"; copies between cards {view.peer_copy_seconds():.4f} s",
+          file=sys.stderr)
     return view, red["breakdown"]
+
+
+def memory_peak(devices) -> int:
+    """The fullest card's peak of allocated memory (0 on the CPU)."""
+    import torch
+    return max((torch.cuda.max_memory_allocated(d) for d in devices
+                if d.type == "cuda"), default=0)
 
 
 def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
@@ -448,7 +474,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
     env = Env(cell, seed, device)
     kind = env.traffic["kind"]
     setup, window = KINDS[kind]
-    sync = _sync_fn(env.device)
+    sync = tracing.sync_fn(env.devices)
     setup(env)
     sync()
     setup_s = time.perf_counter() - t0
@@ -487,7 +513,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
                                 f"{m['name']!r}")
             metrics[m["name"]] = {"value": values[m["name"]],
                                   "unit": m["unit"]}
-    memory = torch.cuda.max_memory_allocated(env.device) if cuda else 0
+    memory = memory_peak(env.devices)
     env.trainer._drop_steps()
     if cuda:
         torch.cuda.empty_cache()

@@ -14,7 +14,7 @@ import contextlib
 import functools
 from typing import Callable, Dict, List, Optional
 
-from tracing import EXTRACT, STEP
+from tracing import EXTRACT, STEP, sync_fn
 
 METHODS = ("_build_batch", "_batch_plans", "_stage", "_run")
 
@@ -88,7 +88,13 @@ class StepRecorder:
     stages them (batch, seed words, loss uniforms, weights), the
     optimizer's first moments after the first step and the parameters
     after the ``n``-th.  It shadows ``_stage`` on the instance and takes
-    itself away after the ``n``-th step, or at :meth:`close`."""
+    itself away after the ``n``-th step, or at :meth:`close`.
+
+    On a mesh a step is one step per shard, shard ``d`` holding the
+    ``d``-th equal group of the batch's tiles: the shards' seed words and
+    uniforms are recorded concatenated, in global tile order.  The model
+    and its optimizer live on the trainer's device, so the first moments
+    are of the joint gradient."""
 
     def __init__(self, trainer, n: int):
         self.trainer, self.n = trainer, n
@@ -98,18 +104,13 @@ class StepRecorder:
         self._stage_fn = _method(trainer, "_stage")
         _shadow(trainer, {"_stage": self._stage})
 
-    def _sync(self):
-        import torch
-        if self.trainer.device.type == "cuda":
-            torch.cuda.synchronize(self.trainer.device)
-
     def _named(self, fn):
         return {name: fn(p).detach().cpu().clone()
                 for name, p in self.trainer.model.named_parameters()}
 
     def take_after(self):
         """The parameters now, as the state after the recorded steps."""
-        self._sync()
+        sync_fn([self.trainer.device])()
         self.params_after = self._named(lambda p: p)
 
     def close(self):
@@ -127,11 +128,11 @@ class StepRecorder:
         import torch
 
         tr = self.trainer
-        train = (not isinstance(steps, list)
-                 and steps.inputs.seeds.shape[0] > 0)
+        shards = steps if isinstance(steps, list) else [steps]
+        train = shards[0].inputs.seeds.shape[0] > 0
         k = len(self.steps)
         if train and k == 1 and self.grad1 is None:
-            self._sync()
+            sync_fn([tr.device])()
             b1 = tr.optimizer.param_groups[0]["betas"][0]
             state = tr.optimizer.state
             # a parameter the step did not update has no moment: zero
@@ -143,12 +144,15 @@ class StepRecorder:
             _unshadow(tr, ["_stage"])
         self._stage_fn(steps, batch, gen, weights)
         if train and k < self.n:
-            self._sync()
-            inp = steps.inputs
+            sync_fn([s.device for s in shards])()
+            inps = [s.inputs for s in shards]
+
+            def joined(key):
+                return torch.cat([getattr(i, key).detach().cpu()
+                                  for i in inps])
+
             self.steps.append({
-                "batch": batch,
-                "seeds": inp.seeds.detach().cpu().clone(),
-                "tx_u": inp.tx_u.detach().cpu().clone(),
-                "bd_u": inp.bd_u.detach().cpu().clone(),
-                "sg_u": inp.sg_u.detach().cpu().clone(),
-                "weights": inp.weights.detach().cpu().clone()})
+                "batch": batch, "seeds": joined("seeds"),
+                "tx_u": joined("tx_u"), "bd_u": joined("bd_u"),
+                "sg_u": joined("sg_u"),
+                "weights": inps[0].weights.detach().cpu().clone()})

@@ -1,6 +1,6 @@
-"""The share of the traced window in which no kernel or copy ran on the
-card (the union of the trace's device records, spins left out), in
-percent."""
+"""The share of the traced window in which no kernel or copy ran on a
+card (each card's union of the trace's device records, spins left out,
+averaged over the cell's cards), in percent."""
 
 
 def read(view):

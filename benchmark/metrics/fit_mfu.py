@@ -1,9 +1,10 @@
 """Model FLOPs of the traced epochs' train and eval steps over the traced
-seconds at the card's bf16 dense peak, in percent."""
+seconds at the bf16 dense peak of the cell's cards, in percent."""
 from counts import BF16_FLOPS_PER_S
 
 
 def read(view):
     if view.kind != "fit" or view.window_s <= 0 or not view.flops:
         return None
-    return 100.0 * view.flops / (view.window_s * BF16_FLOPS_PER_S)
+    return 100.0 * view.flops / (view.window_s * view.cards
+                                 * BF16_FLOPS_PER_S)

@@ -347,17 +347,31 @@ def loss_weights(epoch: int, max_epochs: int, model: dict) -> torch.Tensor:
     return (w / (w.sum() + 1e-8)).float()
 
 
-def train_step(p, state, tile, seeds, tx_u, bd_u, sg_u, weights,
-               tx_similarity, bd_similarity, model: dict,
-               precision: str = "f32"):
-    """One training step: forward with dropout, the step loss, its
-    gradient, one Adam update of ``p`` (a dict of leaf tensors) with
-    ``state`` (``{"t": int, "m": {}, "v": {}}``).  Returns ``(loss,
-    grads)`` before the update."""
+def train_step(p, state, tiles, weights, tx_similarity, bd_similarity,
+               model: dict, precision: str = "f32", exchange: bool = True):
+    """One training step over a batch of tiles: each tile's forward with
+    dropout and its ``loss_parts``, the statistics summed over the tiles
+    (the joint masked means), the step loss, its gradient, one Adam
+    update of ``p`` (a dict of leaf tensors) with ``state`` (``{"t": int,
+    "m": {}, "v": {}}``).  ``tiles``: per tile, ``(tile, seeds, tx_u,
+    bd_u, sg_u)``, its launches' seed words and its loss uniforms.  A
+    tile with no valid node (a batch's padding) has no statistics and is
+    left out: its forward over no rows is undefined.  ``exchange=False``
+    takes the gradient through the first tile's statistics alone (the
+    others' enter the loss as constants).  Returns ``(loss, grads)``
+    before the update."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
-    emb = forward(leaves, tile, model, seeds, precision)
-    loss = step_loss(loss_parts(emb, tile, tx_u, bd_u, sg_u, tx_similarity,
-                                bd_similarity, model), weights)
+    stats = None
+    for tile, seeds, tx_u, bd_u, sg_u in tiles:
+        if not (tile["tx_valid"].any() or tile["bd_valid"].any()):
+            continue
+        emb = forward(leaves, tile, model, seeds, precision)
+        parts = loss_parts(emb, tile, tx_u, bd_u, sg_u, tx_similarity,
+                           bd_similarity, model)
+        if stats is not None and not exchange:
+            parts = parts.detach()
+        stats = parts if stats is None else stats + parts
+    loss = step_loss(stats, weights)
     grads = dict(zip(leaves, torch.autograd.grad(
         loss, list(leaves.values()), allow_unused=True)))
     grads = {k: torch.zeros_like(p[k]) if g is None else g

@@ -1,13 +1,15 @@
 """``correct`` comes out false for the control and for each fault the
 cells can have, with the harness driven on the CPU at a tiny size (its
-look for a chip skipped): the reference in float8 put in the program's
-place; a step that leaves the state unchanged; half of the batch left
-out of the loss; a step's loss or a transcript's cell altered where it
-is produced; a gene's similarity threshold altered where the writer
-works it out.  One-chip cells have no exchange between chips to leave
-out.  A sound run of the same size comes out correct; the reference's
-thresholds equal the writer's bit for bit, and in float32 or with a
-planted wrong threshold they do not."""
+look for a chip skipped; the 4-card cell's mesh is four CPU shards): the
+reference in float8 put in the program's place; a step that leaves the
+state unchanged; half of the batch left out of the loss (half of each
+tile's rows; on the 4-card cell also half of a step's tiles); the
+exchange between the cards left out (4-card cell); a step's loss or a
+transcript's cell altered where it is produced; a gene's similarity
+threshold altered where the writer works it out.  A sound run of the
+same size comes out correct; the reference's thresholds equal the
+writer's bit for bit, and in float32 or with a planted wrong threshold
+they do not."""
 import time
 
 import numpy as np
@@ -36,14 +38,16 @@ def control(tiny, workload):
     return compare.judge(readings, cell["traffic"]["limits"]), readings
 
 
-@pytest.mark.parametrize("workload", ["xenium5k-fit", "xenium5k-predict"])
+@pytest.mark.parametrize("workload", ["xenium5k-fit", "xenium5k-predict",
+                                      "xenium5k-fit-4card"])
 def test_a_sound_run_is_correct(tiny, workload):
     r = run(tiny, workload)
     assert r["correct"], r["check"]
     assert list(r)[-1] == "check"
 
 
-@pytest.mark.parametrize("workload", ["xenium5k-fit", "xenium5k-predict"])
+@pytest.mark.parametrize("workload", ["xenium5k-fit", "xenium5k-predict",
+                                      "xenium5k-fit-4card"])
 def test_the_float8_control_is_not_correct(tiny, workload):
     ok, readings = control(tiny, workload)
     assert not ok, readings
@@ -65,6 +69,36 @@ def _half_batch(monkeypatch):
         return stats(randoms, emb, tile.replace(tx_interior=rows & keep),
                      *a, **kw)
     monkeypatch.setattr(trainer.L, "loss_stats", half)
+
+
+def _half_tiles(monkeypatch):
+    """Half of a mesh step's tiles left out, the means taken over the
+    rest: the later shards' statistics and gradients dropped."""
+    from segger_tpu_torch.train import trainer
+
+    run = trainer.SeggerTrainer._run
+
+    def first_half(self, kind, step):
+        out = run(self, kind, step)
+        shard = next(k[2] for k, s in self._steps.items() if s is step)
+        keep = kind != "train" or shard < self.mesh.size // 2
+        return out if keep else torch.zeros_like(out)
+
+    def first_half_grads(flat_grads, out):
+        out.copy_(flat_grads[0])
+        for g in flat_grads[1:len(flat_grads) // 2]:
+            out.add_(g.to(out.device))
+        return out
+    monkeypatch.setattr(trainer.SeggerTrainer, "_run", first_half)
+    monkeypatch.setattr(trainer, "reduce_gradients", first_half_grads)
+
+
+def _exchange_left_out(monkeypatch):
+    from segger_tpu_torch.train import trainer
+
+    def first_shard_only(flat_grads, out):
+        return out.copy_(flat_grads[0])
+    monkeypatch.setattr(trainer, "reduce_gradients", first_shard_only)
 
 
 def _loss_altered(monkeypatch):
@@ -107,6 +141,11 @@ def _threshold_altered(monkeypatch):
     ("xenium5k-fit", _unchanged),
     ("xenium5k-fit", _half_batch),
     ("xenium5k-fit", _loss_altered),
+    ("xenium5k-fit-4card", _unchanged),
+    ("xenium5k-fit-4card", _half_batch),
+    ("xenium5k-fit-4card", _half_tiles),
+    ("xenium5k-fit-4card", _exchange_left_out),
+    ("xenium5k-fit-4card", _loss_altered),
     ("xenium5k-predict", _cell_altered),
     ("xenium5k-predict", _threshold_altered),
 ])
